@@ -1,0 +1,64 @@
+"""Carry TPC-C state between the reference package and the port.
+
+``tpcc_state_from_numpy`` reads a reference ``TPCCState`` whose leaves are
+numpy arrays (uint32 lanes as they are, or already viewed as int32) and
+builds the port's state on ``device``; ``tpcc_state_to_numpy`` maps the
+port's state back to numpy leaves with the reference's dtypes. Both walk
+the fields by name, so any object with the reference's attribute layout
+will do. This is how both packages start from identical data.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._u32 import np_to_i32, np_to_u32
+from repro_torch.core import hashtable as ht, mvcc, rangeindex as ri, store
+from repro_torch.core.tsoracle import VectorState
+from repro_torch.db.tpcc import TPCCState
+
+# fields that hold uint32 words in the reference
+U32_FIELDS = frozenset({"cur_hdr", "old_hdr", "ovf_hdr", "vec", "keys",
+                        "base_keys", "delta_keys"})
+
+
+def _t(a, device):
+    return torch.from_numpy(np_to_i32(a)).to(device)
+
+
+def _tuple_from(cls, obj, device):
+    return cls(*(_t(getattr(obj, f), device) for f in cls._fields))
+
+
+def tpcc_state_from_numpy(tree, device) -> TPCCState:
+    nam = tree.nam
+    directory = None
+    if tree.directory is not None:
+        directory = _tuple_from(ht.HashTable, tree.directory, device)
+    return TPCCState(
+        nam=store.NAMStore(
+            table=_tuple_from(mvcc.VersionedTable, nam.table, device),
+            oracle_state=_tuple_from(VectorState, nam.oracle_state, device),
+            extends=_tuple_from(store.ExtendState, nam.extends, device)),
+        order_index=_tuple_from(ri.RangeIndex, tree.order_index, device),
+        hist_cursor=_t(tree.hist_cursor, device),
+        directory=directory)
+
+
+def _to_np(tup):
+    return type(tup)(*(
+        np_to_u32(t.cpu().numpy()) if f in U32_FIELDS else t.cpu().numpy()
+        for f, t in zip(tup._fields, tup)))
+
+
+def tpcc_state_to_numpy(state: TPCCState) -> TPCCState:
+    """The port's state with numpy leaves in the reference's dtypes."""
+    nam = state.nam
+    return TPCCState(
+        nam=store.NAMStore(table=_to_np(nam.table),
+                           oracle_state=_to_np(nam.oracle_state),
+                           extends=_to_np(nam.extends)),
+        order_index=_to_np(state.order_index),
+        hist_cursor=state.hist_cursor.cpu().numpy(),
+        directory=None if state.directory is None
+        else _to_np(state.directory))

@@ -1,0 +1,62 @@
+"""Batched owner-arbitrated compare-and-swap (validate + lock, §3.1/§5.1).
+
+Within one round every lock request that targets the same record is
+arbitrated by a scatter-min tournament over the requesters' priorities; the
+winner is granted iff its expected 8-byte header equals the installed one
+and the record is unlocked. The CUDA commit kernel
+(``repro_torch.kernels.commit``) runs the same tournament with
+``atomicMin``.
+
+Both functions update ``hdrs`` in place and return it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch._u32 import gidx, rows_of, to_i32, u64
+from repro_torch.core import header as hdr_ops
+
+NO_WINNER = 0xFFFFFFFF
+
+
+class CasResult(NamedTuple):
+    granted: torch.Tensor  # bool [Q] — request won arbitration AND matched
+    new_hdr: torch.Tensor  # int32 [R, 2] — ``hdrs``, lock bits applied
+
+
+def arbitrate(hdrs, slots, expected, prio, active) -> CasResult:
+    """One round of CAS requests against ``hdrs`` (int32 [R, 2]).
+
+    ``slots`` int32 [Q], ``expected`` int32 [Q, 2], ``prio`` uint32 words
+    [Q] (lower wins), ``active`` bool [Q]. Sets the lock bit of every
+    granted slot in place.
+    """
+    n_rec = hdrs.shape[0]
+    safe = gidx(torch.where(active, slots, 0), n_rec)
+    mprio = torch.where(active, u64(prio), NO_WINNER)
+    arb = torch.full((n_rec,), NO_WINNER, dtype=torch.int64, device=hdrs.device)
+    arb.scatter_reduce_(0, safe, mprio, "amin")
+    won = active & (arb[safe] == mprio) & (mprio != NO_WINNER)
+
+    installed = hdrs[safe]
+    granted = won & hdr_ops.equal(installed, expected) \
+        & ~hdr_ops.is_locked(installed)
+
+    # scatter-max of (meta | LOCKED): sets the bit where granted, rewrites
+    # the unchanged word elsewhere
+    meta = u64(hdrs[:, hdr_ops.META])
+    lock_or = torch.where(granted, hdr_ops.LOCKED_BIT, 0)
+    meta.scatter_reduce_(0, safe, u64(installed[:, hdr_ops.META]) | lock_or,
+                         "amax")
+    hdrs[:, hdr_ops.META] = to_i32(meta)
+    return CasResult(granted=granted, new_hdr=hdrs)
+
+
+def release(hdrs, slots, mask):
+    """Clear the lock bits of the masked slots (the abort path) in place."""
+    rows = rows_of(mask)
+    s = gidx(slots[rows], hdrs.shape[0])
+    hdrs[s, hdr_ops.META] = hdrs[s, hdr_ops.META] & ~hdr_ops.LOCKED_BIT
+    return hdrs

@@ -1,0 +1,282 @@
+"""The end-to-end Snapshot Isolation protocol (paper §3.1 Listing 1 + §4-6).
+
+One call of :func:`run_round` executes one transaction per execution thread,
+batched. The phases are Listing 1's: read the timestamp vector T_R, build
+the read-set with visible reads (§5.1, optionally key-addressed through the
+§5.2 hash index), compute the write-set, create commit timestamps locally,
+validate + lock each written record with one arbitrated CAS, install the
+write-sets of committed transactions, release the locks of aborted ones,
+and make commits visible in T_R.
+
+The pool and the vector are updated **in place**; the returned
+:class:`RoundResult` carries the same tensors.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch._u32 import gidx, to_i32, u64
+from repro_torch.core import cas, hashtable as ht, header as hdr_ops, mvcc
+from repro_torch.core.mvcc import VersionedTable
+from repro_torch.core.tsoracle import VectorOracle, VectorState
+
+
+class TxnBatch(NamedTuple):
+    """One transaction per execution thread; ``write_ref`` indexes into the
+    transaction's own read-set (the CAS expectation is the header read)."""
+    tid: torch.Tensor         # int32 [T]
+    read_slots: torch.Tensor  # int32 [T, RS]
+    read_mask: torch.Tensor   # bool  [T, RS]
+    write_ref: torch.Tensor   # int32 [T, WS]
+    write_mask: torch.Tensor  # bool  [T, WS]
+
+
+class KeyedReads(NamedTuple):
+    """Key-addressed reads: where ``mask`` is set the record slot is
+    resolved through the hash index with ``keys`` (uint32 words); a miss
+    reports not-found and aborts the transaction via ``snapshot_miss``."""
+    keys: torch.Tensor  # int32 [T, RS]
+    mask: torch.Tensor  # bool  [T, RS]
+
+
+class OpCounts(NamedTuple):
+    """Per-round RDMA-op accounting."""
+    ts_reads: torch.Tensor
+    ts_read_bytes: torch.Tensor
+    record_reads: torch.Tensor
+    cas_ops: torch.Tensor
+    writes: torch.Tensor
+    bytes_moved: torch.Tensor
+
+
+class VisStats(NamedTuple):
+    """Per-round visibility accounting (§5.1/§5.3 telemetry)."""
+    n_reads: torch.Tensor
+    n_current: torch.Tensor
+    n_ovf: torch.Tensor
+    n_miss: torch.Tensor
+
+
+def vis_stats(read_mask, found, from_current, from_ovf,
+              active=None) -> VisStats:
+    m = read_mask if active is None else read_mask & active[:, None]
+    return VisStats(n_reads=m.sum(), n_current=(m & from_current).sum(),
+                    n_ovf=(m & from_ovf).sum(), n_miss=(m & ~found).sum())
+
+
+class RoundResult(NamedTuple):
+    table: VersionedTable
+    oracle_state: VectorState
+    committed: torch.Tensor      # bool [T]
+    snapshot_miss: torch.Tensor  # bool [T]
+    read_data: torch.Tensor      # int32 [T, RS, W]
+    ops: OpCounts
+    vis: VisStats
+
+
+ComputeFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+DIR_PROBE_BYTES = 8  # one §5.2 bucket-cluster read: key + slot
+
+
+def count_ops(oracle, batch: TxnBatch, txn_found, from_current, n_installs,
+              n_releases, n_committed, payload_width: int,
+              payload_bytes: int = 0, n_txns=None,
+              active=None, n_index_probes=0) -> OpCounts:
+    """RDMA-op accounting for one round (the reference's cost profile)."""
+    T = batch.read_slots.shape[0]
+    if n_txns is None:
+        n_txns = T
+    read_mask, write_mask = batch.read_mask, batch.write_mask
+    if active is not None:
+        read_mask = read_mask & active[:, None]
+        write_mask = write_mask & active[:, None]
+    n_active_r = read_mask.sum()
+    n_active_w = (write_mask & txn_found[:, None]).sum()
+    vec_bytes = 4 * getattr(oracle, "n_slots", T)
+    rec_bytes = 8 + 4 * payload_width if payload_bytes == 0 else payload_bytes
+    return OpCounts(
+        ts_reads=torch.as_tensor(n_txns),
+        ts_read_bytes=torch.as_tensor(n_txns * vec_bytes),
+        record_reads=n_active_r + (~from_current & read_mask).sum()
+        + n_index_probes,
+        cas_ops=n_active_w,
+        writes=2 * n_installs + n_releases + n_committed,
+        bytes_moved=(n_active_r + 2 * n_installs) * rec_bytes
+        + n_txns * vec_bytes + n_index_probes * DIR_PROBE_BYTES)
+
+
+class CommitOut(NamedTuple):
+    """Outputs of one commit phase over a flat request array (Q = T*WS)."""
+    table: VersionedTable
+    granted: torch.Tensor       # bool  [Q]
+    committed: torch.Tensor     # bool  [T]
+    do_install: torch.Tensor    # bool  [Q]
+    release_mask: torch.Tensor  # bool  [Q]
+    fails: torch.Tensor         # int32 [T]
+
+
+def commit_write_sets(table: VersionedTable, req_slots, req_expected,
+                      req_prio, req_active, txn_of_req, new_hdr, new_data,
+                      txn_ok, *, ext_fails=None) -> CommitOut:
+    """Phases 5/7/8 of Listing 1: arbitrated CAS validate + lock, install
+    the write-sets of committed transactions, release the locks of aborted
+    ones. A transaction commits iff ``txn_ok`` and none of its active
+    requests (plus ``ext_fails``) failed. Updates ``table`` in place."""
+    n_txn = txn_ok.shape[0]
+    res = cas.arbitrate(table.cur_hdr, req_slots, req_expected, req_prio,
+                        req_active)
+    granted = res.granted
+
+    # install feasibility: the circular victim slot must be reusable (§5.1)
+    R, K = table.n_records, table.n_old
+    safe = gidx(torch.where(req_active, req_slots, 0), R)
+    wpos = torch.remainder(table.next_write[safe].to(torch.int64), K)
+    effective = granted & hdr_ops.is_moved(table.old_hdr[safe, wpos])
+
+    # scatter-add with JAX's drop of out-of-range ids: slot n_txn is a sink
+    t = txn_of_req.to(torch.int64)
+    t = torch.where(t < 0, t + n_txn, t)
+    t = torch.where((t >= 0) & (t < n_txn), t, n_txn)
+    fails = torch.zeros((n_txn + 1,), dtype=torch.int32, device=txn_ok.device)
+    fails.index_add_(0, t, (req_active & ~effective).to(torch.int32))
+    fails = fails[:n_txn]
+    total = fails if ext_fails is None else fails + ext_fails
+    committed = (total == 0) & txn_ok
+
+    txn_c = committed[gidx(txn_of_req, n_txn)]
+    do_install = effective & txn_c
+    mvcc.install(table, req_slots, new_hdr, new_data, do_install)
+    release_mask = granted & ~txn_c
+    cas.release(table.cur_hdr, req_slots, release_mask)
+    return CommitOut(table=table, granted=granted, committed=committed,
+                     do_install=do_install, release_mask=release_mask,
+                     fails=fails)
+
+
+def run_round(table: VersionedTable, oracle: VectorOracle,
+              state: VectorState, batch: TxnBatch, compute_fn: ComputeFn, *,
+              rts_vec: Optional[torch.Tensor] = None, payload_bytes: int = 0,
+              active: Optional[torch.Tensor] = None,
+              directory: Optional[ht.HashTable] = None,
+              keyed: Optional[KeyedReads] = None, dir_max_probes: int = 16,
+              fused_commit: bool = False,
+              batched_probe: bool = False) -> RoundResult:
+    """Execute one batched round of the SI protocol.
+
+    ``active`` (bool [T]) marks the threads that run a transaction.
+    ``directory`` + ``keyed`` resolve the marked reads through the §5.2
+    hash index; writes then validate and install at the resolved slots.
+    ``batched_probe`` resolves the whole read-set with the
+    ``kernels.hash_probe`` kernel and ``fused_commit`` runs the write side
+    with the ``kernels.commit`` kernel; both are access-path choices with
+    results identical to the plain rendering.
+    """
+    T, RS = batch.read_slots.shape
+    WS = batch.write_ref.shape[1]
+    W = table.payload_width
+    dev = batch.read_slots.device
+    if active is None:
+        active = torch.ones((T,), dtype=torch.bool, device=dev)
+
+    # ---- 1. read timestamp (whole vector = the snapshot) -----------------
+    if rts_vec is None:
+        rts_vec = oracle.read(state)
+
+    # ---- 2. key resolution (§5.2) + visible reads -------------------------
+    flat_slots = batch.read_slots.reshape(-1)
+    n_index_probes = 0
+    if directory is not None:
+        assert keyed is not None, "key-addressed mode needs KeyedReads"
+        n_index_probes = (keyed.mask & batch.read_mask & active[:, None]).sum()
+    if batched_probe:
+        from repro_torch.kernels.hash_probe import ops as probe_ops
+        if directory is not None:
+            slot_out, f_out, src, pos = probe_ops.batched_probe(
+                directory.keys, directory.vals, table, rts_vec, flat_slots,
+                keyed.keys.reshape(-1), keyed.mask.reshape(-1),
+                max_probes=dir_max_probes)
+        else:
+            slot_out, f_out, src, pos = probe_ops.batched_probe(
+                None, None, table, rts_vec, flat_slots, None, None)
+        flat_slots = torch.where(slot_out >= 0, slot_out, 0)
+        hdr_flat, data_flat = mvcc.gather_version(
+            table, flat_slots, mvcc.VersionLoc(found=f_out, src=src, pos=pos))
+        read_found = f_out
+        from_current = f_out & (src == mvcc.SRC_CURRENT)
+        from_ovf = f_out & (src == mvcc.SRC_OVF)
+    else:
+        key_ok = torch.ones(flat_slots.shape, dtype=torch.bool, device=dev)
+        if directory is not None:
+            kvals, kfound = ht.lookup(directory, keyed.keys.reshape(-1),
+                                      max_probes=dir_max_probes)
+            km = keyed.mask.reshape(-1)
+            flat_slots = torch.where(km, torch.where(kfound, kvals, 0),
+                                     flat_slots)
+            key_ok = ~km | kfound
+        vr = mvcc.read_visible(table, flat_slots, rts_vec)
+        hdr_flat, data_flat = vr.hdr, vr.data
+        read_found = vr.found & key_ok
+        from_current = vr.from_current & key_ok
+        from_ovf = vr.from_ovf & key_ok
+    read_slots = flat_slots.reshape(T, RS)
+    read_hdr = hdr_flat.reshape(T, RS, 2)
+    read_data = data_flat.reshape(T, RS, W)
+    read_found = read_found.reshape(T, RS)
+    from_current = from_current.reshape(T, RS)
+    from_ovf = from_ovf.reshape(T, RS)
+    txn_found = (read_found | ~batch.read_mask).all(dim=1)
+
+    # ---- 3. transaction logic (local to the compute server) --------------
+    new_data = compute_fn(read_hdr, read_data, rts_vec)
+    assert new_data.shape == (T, WS, W), (new_data.shape, (T, WS, W))
+
+    # ---- 4. commit timestamps, created locally ----------------------------
+    slot = oracle.slot_of_thread(batch.tid)
+    cts = to_i32(u64(state.vec[gidx(slot, state.vec.shape[0])]) + 1)
+    new_hdr = hdr_ops.pack(slot[:, None].expand(T, WS),
+                           cts[:, None].expand(T, WS))
+
+    # ---- 5. commit-phase request staging ----------------------------------
+    wref = batch.write_ref.clamp(0, RS - 1).to(torch.int64)
+    write_slots = read_slots.gather(1, wref)
+    expected = read_hdr.gather(1, wref[:, :, None].expand(T, WS, 2))
+    txn_ok = txn_found & active
+    req_active = (batch.write_mask & txn_ok[:, None]).reshape(-1)
+    req_slots = write_slots.reshape(-1)
+    req_expected = expected.reshape(-1, 2)
+    req_prio = batch.tid[:, None].expand(T, WS).reshape(-1)
+    txn_of_req = torch.arange(T, dtype=torch.int32, device=dev)[:, None] \
+        .expand(T, WS).reshape(-1)
+
+    # ---- 5./7./8./9. validate+lock, install, release, make visible --------
+    if fused_commit:
+        from repro_torch.kernels.commit import ops as commit_ops
+        fc = commit_ops.fused_commit(
+            table, state.vec, req_slots, req_expected, req_prio, req_active,
+            txn_of_req, new_hdr.reshape(-1, 2), new_data.reshape(-1, W),
+            txn_ok, slot, cts, torch.zeros((T,), dtype=torch.int32,
+                                           device=dev))
+        committed, do_install = fc.committed, fc.do_install
+        release_mask = fc.granted & ~committed[txn_of_req.to(torch.int64)]
+    else:
+        co = commit_write_sets(table, req_slots, req_expected, req_prio,
+                               req_active, txn_of_req,
+                               new_hdr.reshape(-1, 2),
+                               new_data.reshape(-1, W), txn_ok)
+        committed = co.committed
+        do_install, release_mask = co.do_install, co.release_mask
+        oracle.make_visible(state, batch.tid, cts, committed)
+
+    # ---- op accounting -----------------------------------------------------
+    ops = count_ops(oracle, batch, txn_found, from_current,
+                    do_install.sum(), release_mask.sum(), committed.sum(), W,
+                    payload_bytes, n_txns=active.sum(), active=active,
+                    n_index_probes=n_index_probes)
+    vis = vis_stats(batch.read_mask, read_found, from_current, from_ovf,
+                    active)
+    return RoundResult(table=table, oracle_state=state, committed=committed,
+                       snapshot_miss=~txn_found, read_data=read_data, ops=ops,
+                       vis=vis)

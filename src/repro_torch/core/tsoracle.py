@@ -1,0 +1,56 @@
+"""The timestamp-vector oracle (paper §4.1).
+
+The read timestamp is a vector ``T_R = ⟨t_1 … t_n⟩`` with one slot per
+transaction-execution thread. A commit timestamp is created locally
+(``t_i + 1``) and made visible by one unilateral write of slot ``i``; no
+atomics anywhere. Slots are uint32 words in int32 storage.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch._u32 import to_i32, u64
+
+
+class VectorState(NamedTuple):
+    vec: torch.Tensor  # int32 [n_slots] — T_R (uint32 words)
+
+
+class VectorOracle:
+    """One slot per transaction-execution thread; ``slot_of_thread`` is
+    the identity."""
+
+    def __init__(self, n_threads: int):
+        self.n_threads = n_threads
+        self.n_slots = n_threads
+
+    def init(self, device=None) -> VectorState:
+        """Zero vector on ``device`` (default ``cuda``; raises without one)."""
+        return VectorState(vec=torch.zeros(
+            (self.n_slots,), dtype=torch.int32, device=resolve_device(device)))
+
+    def slot_of_thread(self, tid):
+        return tid
+
+    def read(self, state: VectorState) -> torch.Tensor:
+        """One-sided read of the whole vector: a snapshot (a copy)."""
+        return state.vec.clone()
+
+    def next_commit_ts(self, state: VectorState, tid):
+        return to_i32(u64(state.vec[self.slot_of_thread(tid)]) + 1)
+
+    def make_visible(self, state: VectorState, tid, cts, committed=None):
+        """Scatter-max of the commit timestamps into the threads' slots,
+        masked to the committed transactions; updates ``state.vec`` in
+        place and returns ``state``."""
+        cts = u64(cts)
+        if committed is not None:
+            cts = torch.where(committed, cts, 0)
+        slot = self.slot_of_thread(tid).to(torch.int64)
+        vec = u64(state.vec)
+        vec.scatter_reduce_(0, slot, cts, "amax")
+        state.vec.copy_(to_i32(vec))
+        return state

@@ -1,0 +1,303 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+This file imports no JAX (the machine with the card has none): it builds
+its cases with numpy and the port alone, and ``test_torch_kernels.py``
+reuses the same case functions to hold the plain versions against the
+reference. Every test here is marked ``gpu`` and skips without a card;
+run them there with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
+Every output is an integer or a bool: the tolerance is exact equality.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch._u32 import np_to_i32
+from repro_torch.core import hashtable as tht, mvcc as tmvcc
+from repro_torch.core.tsoracle import VectorOracle
+from repro_torch.db import tpcc, workload
+from repro_torch.kernels.commit import ops as commit_ops
+from repro_torch.kernels.commit.ref import fused_commit_ref
+from repro_torch.kernels.hash_probe import ops as probe_ops
+from repro_torch.kernels.hash_probe.ref import batched_probe_ref
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np_to_i32(a)).to(device)
+
+
+def _assert_leaves_equal(ref, port, names):
+    for name, a, b in zip(names, ref, port):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) \
+            else np_to_i32(np.asarray(a))
+        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+# ----------------------------------------------------------- probe cases ----
+def _hdr(tid, cts, flags):
+    return np.stack([(np.asarray(tid, np.uint32) << 3) | flags,
+                     np.asarray(cts, np.uint32)], axis=-1).astype(np.uint32)
+
+
+def _probe_table(seed, R=48, K=2, KO=4, W=4, n_ts=4):
+    """Populated rings: random headers with thread ids past the vector,
+    commit stamps near 2**32, deleted and moved bits, never-written
+    sentinels and ring counters past several revolutions."""
+    rng = np.random.RandomState(seed)
+    big = np.uint32(0xFFFFFFF0)
+
+    def hdrs(shape, moved_p, deleted_p):
+        tid = rng.randint(0, n_ts + 3, shape)
+        cts = rng.randint(0, 12, shape).astype(np.uint32)
+        cts = np.where(rng.rand(*shape) < 0.1, big, cts)
+        flags = (np.where(rng.rand(*shape) < moved_p, 4, 0)
+                 | np.where(rng.rand(*shape) < deleted_p, 2, 0))
+        return _hdr(tid, cts, flags)
+
+    old = hdrs((R, K), 0.5, 0.1)
+    sentinel = rng.rand(R, K) < 0.25
+    old[sentinel] = _hdr(0, 0, 4)
+    tbl = dict(
+        cur_hdr=hdrs((R,), 0.0, 0.15),
+        cur_data=rng.randint(0, 1000, (R, W)).astype(np.int32),
+        old_hdr=old,
+        old_data=rng.randint(0, 1000, (R, K, W)).astype(np.int32),
+        next_write=rng.randint(0, 5 * K, R).astype(np.int32),
+        ovf_hdr=hdrs((R, KO), 0.0, 0.3),
+        ovf_data=rng.randint(0, 1000, (R, KO, W)).astype(np.int32),
+        ovf_next=rng.randint(0, KO, R).astype(np.int32))
+    # rows 0-3 pin every outcome: served by the current version, by the
+    # old ring, by the overflow ring, and by nothing
+    dead = _hdr(1, 0, 2)
+    tbl["cur_hdr"][0] = _hdr(1, 0, 0)
+    tbl["cur_hdr"][1:4] = dead
+    tbl["old_hdr"][1] = [_hdr(1, 0, 0), dead]
+    tbl["old_hdr"][2:4] = dead
+    tbl["ovf_hdr"][2] = [dead, _hdr(1, 0, 0), dead, dead]
+    tbl["ovf_hdr"][3] = dead
+    ts = rng.randint(0, 12, n_ts).astype(np.uint32)
+    ts[-1] = np.uint32(0xFFFFFFFF)
+    return tbl, ts
+
+
+def probe_case(seed, R=48, n_buckets=128, slot_oob=False):
+    """Mixed read-set over ``_probe_table``: keyed lanes (hits, absent
+    keys, invalidated entries, duplicate keys, keys near 2**32) and slot
+    lanes (optionally out of range). Returns numpy arrays
+    ``(dir_keys, dir_vals, table, ts_vec, fallback, keys, key_mask)``."""
+    rng = np.random.RandomState(seed + 100)
+    tbl, ts = _probe_table(seed, R=R)
+    keys = (np.arange(1, R + 1, dtype=np.uint64) * 2654435761 % (1 << 32)
+            ).astype(np.uint32)
+    keys[:3] = [0xFFFFFFFE, 0xFFFFFFFD, 0x80000000]
+    d, placed = tht.insert(tht.init(n_buckets, device="cpu"), _t(keys),
+                           torch.arange(R, dtype=torch.int32), max_probes=32)
+    assert (placed >= 0).all()
+    d.vals[placed[3:5].long()] = -1           # invalidated entries
+    Q = 2 * R
+    lane_keys = keys[rng.randint(0, R, Q)]
+    lane_keys[1::5] = lane_keys[0]
+    lane_keys[rng.rand(Q) < 0.2] = np.uint32(0xDEADBEEF)      # absent
+    lane_keys[7] = np.uint32(0xFFFFFFFF)                      # key+1 wraps
+    key_mask = rng.rand(Q) < 0.6
+    fallback = rng.randint(0, R, Q).astype(np.int32)
+    fallback[10:14], key_mask[10:14] = np.arange(4), False
+    if slot_oob:
+        fallback[[2, 9]] = [-3, R + 5]
+    return (d.keys.numpy().view(np.uint32), d.vals.numpy(), tbl, ts,
+            fallback, lane_keys, key_mask)
+
+
+def port_table(tbl, device="cpu"):
+    return tmvcc.VersionedTable(**{k: _t(v, device) for k, v in tbl.items()})
+
+
+def port_probe(fn, case, device="cpu", max_probes=32):
+    dk, dv, tbl, ts, fb, lk, km = case
+    return fn(_t(dk, device), _t(dv, device), port_table(tbl, device),
+              _t(ts, device), _t(fb, device), _t(lk, device),
+              _t(km, device), max_probes=max_probes)
+
+
+PROBE_OUT = ("slot", "found", "src", "pos")
+
+
+# ---------------------------------------------------------- commit cases ----
+def commit_case(wrap_seed=0):
+    """The whole outcome lattice, by construction (T=8 transactions of
+    WS=3 requests; prio = transaction id, lower wins):
+
+    txn0 commits on clean slots, winning hot slot 1 against txn1;
+    txn1 loses slot 1 and releases its grants on 5 and 7;
+    txn2 carries a stale expectation on 8 (CAS denial) and releases 10;
+    txn3 targets locked slot 22 and releases 13;
+    txn4 wins slot 3 whose ring victim is not moved, and releases 14;
+    txn5 is gated off by ``txn_ok`` and releases 16 and 17;
+    txn6 commits with a padding lane carrying garbage slot and txn ids;
+    txn7 is aborted by ``ext_fails`` and releases 23 and 25.
+    Ring counters sit past several revolutions (installs land mod K).
+    Returns ``(table, args)`` in numpy, ``args`` in ``fused_commit``'s
+    order after the table."""
+    R, K, W, T, WS = 64, 2, 4, 8, 3
+    rng = np.random.RandomState(wrap_seed)
+    r = np.arange(R)
+    cur = _hdr(r % 4, r % 5, np.where(r % 11 == 0, 1, 0))
+    old = np.broadcast_to(_hdr(0, 0, 4), (R, K, 2)).copy()
+    old[r % 3 == 0] = _hdr(1, 1, 0)            # victims not yet moved
+    tbl = dict(
+        cur_hdr=cur, cur_data=rng.randint(0, 1000, (R, W)).astype(np.int32),
+        old_hdr=old, old_data=rng.randint(0, 1000, (R, K, W)).astype(np.int32),
+        next_write=rng.randint(0, 5 * K, R).astype(np.int32),
+        ovf_hdr=np.broadcast_to(_hdr(0, 0, 2), (R, 2, 2)).copy(),
+        ovf_data=np.zeros((R, 2, W), np.int32),
+        ovf_next=np.zeros(R, np.int32))
+    slots = np.array([[1, 2, 4], [1, 5, 7], [8, 10, 11], [22, 13, 26],
+                      [3, 14, 28], [16, 17, 29], [19, 20, 999],
+                      [23, 25, 31]], np.int32)
+    active = np.ones((T, WS), bool)
+    active[2:8, 2] = False
+    txn = np.repeat(np.arange(T, dtype=np.int32)[:, None], WS, 1)
+    txn[6, 2] = 999
+    expected = cur[np.clip(slots, 0, R - 1)]
+    expected[2, 0, 1] += 1                      # stale expectation
+    vec = rng.randint(0, 5, T).astype(np.uint32)
+    cts = vec + np.uint32(1)
+    new_hdr = _hdr(np.repeat(np.arange(T), WS), np.repeat(cts, WS), 0)
+    txn_ok = np.ones(T, bool)
+    txn_ok[5] = False
+    ext = np.zeros(T, np.int32)
+    ext[7] = 1
+    args = (vec, slots.reshape(-1), expected.reshape(-1, 2),
+            txn.reshape(-1).astype(np.uint32), active.reshape(-1),
+            txn.reshape(-1), new_hdr,
+            rng.randint(0, 1000, (T * WS, W)).astype(np.int32), txn_ok,
+            np.arange(T, dtype=np.int32), cts, ext)
+    return tbl, args
+
+
+COMMIT_OUT = tuple(f"table.{f}" for f in tmvcc.VersionedTable._fields) \
+    + ("vec", "granted", "committed", "do_install", "fails")
+
+
+def flat_commit(out):
+    return tuple(out.table) + tuple(out[1:])
+
+
+def port_commit(fn, case, device="cpu"):
+    tbl, args = case
+    return flat_commit(fn(port_table(tbl, device),
+                          *(_t(a, device) for a in args)))
+
+
+def check_lattice(port):
+    """The constructed case reaches every outcome it was built for."""
+    g, c, inst = (x.cpu().numpy() for x in port[9:12])
+    assert c.tolist() == [True, False, False, False, False, False, True,
+                          False]
+    g, inst = g.reshape(8, 3), inst.reshape(8, 3)
+    assert (g & ~c[:, None]).any() and inst.any()
+    assert not g[1, 0] and not g[2, 0] and not g[3, 0]
+    assert g[4, 0] and not inst[4, 0]
+
+
+# ------------------------------------------------------------ card only ----
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_batched_probe_kernel_matches_plain_on_card(seed):
+    dev = _cuda()
+    case = probe_case(seed, slot_oob=True)
+    n = probe_ops.batched_probe.launches
+    ker = port_probe(probe_ops.batched_probe, case, dev)
+    torch.cuda.synchronize()
+    assert probe_ops.batched_probe.launches == n + 1
+    _assert_leaves_equal(port_probe(batched_probe_ref, case), ker,
+                         PROBE_OUT)
+    dk, dv, tbl, ts, fb, lk, km = case
+    loc = probe_ops.batched_probe(None, None, port_table(tbl, dev),
+                                  _t(ts, dev), _t(fb, dev), None, None)
+    _assert_leaves_equal(
+        batched_probe_ref(None, None, port_table(tbl), _t(ts), _t(fb),
+                          None, None), loc, PROBE_OUT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrap_seed", [0, 1, 2])
+def test_fused_commit_kernel_matches_plain_on_card(wrap_seed):
+    dev = _cuda()
+    case = commit_case(wrap_seed)
+    n = commit_ops.fused_commit.launches
+    ker = port_commit(commit_ops.fused_commit, case, dev)
+    torch.cuda.synchronize()
+    assert commit_ops.fused_commit.launches == n + 1
+    _assert_leaves_equal(port_commit(fused_commit_ref, case), ker,
+                         COMMIT_OUT)
+    check_lattice(ker)
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_bad_cuda_inputs():
+    dev = _cuda()
+    tbl, args = commit_case(0)
+    bad = [_t(a, dev) for a in args]
+    bad[1] = bad[1].to(torch.int64)          # req_slots of the wrong dtype
+    with pytest.raises(ValueError):
+        commit_ops.fused_commit(port_table(tbl, dev), *bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["table_major", "warehouse_major"])
+def test_neworder_kernels_match_plain_path_on_card(layout):
+    """Four key-addressed new-order rounds through both kernels on the card
+    equal the plain path on the CPU, state leaf for state leaf."""
+    dev = _cuda()
+    cfg = tpcc.TPCCConfig(n_warehouses=2, customers_per_district=8,
+                          n_items=64, n_threads=8, orders_per_thread=16,
+                          dist_degree=50.0, layout=layout, key_addressed=True,
+                          fused_commit=True, batched_probe=True)
+    plain = tpcc.TPCCConfig(**{**cfg.__dict__, "fused_commit": False,
+                               "batched_probe": False})
+    oracle = VectorOracle(cfg.n_threads)
+    lay, st = tpcc.init_tpcc(cfg, oracle, device=dev)
+    cpu_st = type(st)(*(_to(x, "cpu") for x in st))
+    gen = torch.Generator().manual_seed(7)
+    draws = [workload.gen_neworder(
+        gen, cfg.n_threads, cfg.n_warehouses, cfg.n_items,
+        cfg.customers_per_district, None, cfg.dist_degree,
+        workload.zipf_logits(cfg.n_items, None, device="cpu"))
+        for _ in range(4)]
+    n = (probe_ops.batched_probe.launches, commit_ops.fused_commit.launches)
+    st, stats = tpcc.run_neworder_rounds(
+        cfg, lay, st, oracle,
+        lambda r: type(draws[r])(*(x.to(dev) for x in draws[r])), 4,
+        device=dev)
+    cpu_st, cpu_stats = tpcc.run_neworder_rounds(
+        plain, lay, cpu_st, oracle, lambda r: draws[r], 4, device="cpu")
+    assert probe_ops.batched_probe.launches - n[0] == 4
+    assert commit_ops.fused_commit.launches - n[1] == 4
+    assert stats.commits == cpu_stats.commits > 0
+    assert torch.equal(stats.committed.cpu(), cpu_stats.committed)
+    _assert_leaves_equal(_leaves(cpu_st), _leaves(st),
+                         [str(i) for i in range(len(_leaves(st)))])
+
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if x is None:
+        return None
+    return type(x)(*(_to(y, device) for y in x))
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if x is None:
+        return []
+    return [leaf for y in x for leaf in _leaves(y)]

@@ -1,0 +1,56 @@
+"""Rules the PyTorch port keeps: no JAX and nothing of the reference
+package in its code, no silent run on the CPU, no kernel build without the
+CUDA toolkit."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.tsoracle import VectorOracle
+from repro_torch.db import tpcc
+from repro_torch.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_entry_points_refuse_to_run_on_the_cpu_silently(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tpcc.TPCCConfig(n_warehouses=1, customers_per_district=4,
+                          n_items=16, n_threads=2, orders_per_thread=4)
+    oracle = VectorOracle(cfg.n_threads)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        oracle.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpcc.init_tpcc(cfg, oracle)
+    lay, st = tpcc.init_tpcc(cfg, oracle, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpcc.run_neworder_rounds(cfg, lay, st, oracle, lambda r: None, 1)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("batched_probe")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()

@@ -1,0 +1,114 @@
+"""The port's kernel modules against the reference's.
+
+On the CPU the port's plain versions (``repro_torch.kernels.*.ref``) are
+held against the reference's plain versions and, once per kernel, against
+the reference's Pallas kernel in interpret mode. The cases are built by
+``test_torch_gpu.py``, whose card-only tests hold the CUDA kernels against
+the same plain versions. Every output is an integer or a bool: the
+tolerance is exact equality everywhere.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import mvcc as jmvcc
+from repro.kernels.commit import ops as jcommit_ops
+from repro.kernels.commit import ref as jcommit_ref
+from repro.kernels.hash_probe import ops as jprobe_ops
+from repro.kernels.hash_probe import ref as jprobe_ref
+
+from repro_torch._u32 import np_to_i32
+from repro_torch.kernels.commit import ops as commit_ops
+from repro_torch.kernels.commit.ref import fused_commit_ref
+from repro_torch.kernels.hash_probe import ops as probe_ops
+from repro_torch.kernels.hash_probe.ref import batched_probe_ref
+
+from test_torch_gpu import (COMMIT_OUT, PROBE_OUT, check_lattice,
+                            commit_case, flat_commit, port_commit, port_probe,
+                            port_table, probe_case, _t)
+
+
+def _assert_leaves_equal(ref, port, names):
+    for name, a, b in zip(names, ref, port):
+        a = np_to_i32(np.asarray(a))
+        b = b.numpy()
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _jax_table(tbl):
+    return jmvcc.VersionedTable(**{k: jnp.asarray(v) for k, v in tbl.items()})
+
+
+@pytest.mark.parametrize("seed,max_probes", [(0, 32), (1, 32), (2, 3)])
+def test_batched_probe_ref_matches_reference(seed, max_probes):
+    """Port plain version == reference plain version on every lane,
+    including out-of-range fallback slots (JAX gather semantics)."""
+    case = probe_case(seed, slot_oob=True)
+    dk, dv, tbl, ts, fb, lk, km = case
+    ref = jprobe_ref.batched_probe_ref(
+        jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
+        jnp.asarray(fb), jnp.asarray(lk), jnp.asarray(km),
+        max_probes=max_probes)
+    port = port_probe(batched_probe_ref, case, max_probes=max_probes)
+    _assert_leaves_equal(ref, port, PROBE_OUT)
+    found, src = port[1].numpy(), port[2].numpy()
+    # the case reaches every branch of the resolution
+    assert found.any() and (~found).any()
+    assert {0, 1, 2} <= set(src[found].tolist())
+    assert (port[0].numpy()[km] == -1).any()
+
+
+def test_batched_probe_locate_only_matches_reference():
+    dk, dv, tbl, ts, fb, lk, km = probe_case(3)
+    ref = jprobe_ref.batched_probe_ref(None, None, _jax_table(tbl),
+                                       jnp.asarray(ts), jnp.asarray(fb),
+                                       None, None)
+    port = batched_probe_ref(None, None, port_table(tbl), _t(ts), _t(fb),
+                             None, None)
+    _assert_leaves_equal(ref, port, PROBE_OUT)
+
+
+def test_batched_probe_matches_pallas_interpret():
+    """One case through the reference's Pallas kernel in interpret mode."""
+    case = probe_case(4)
+    dk, dv, tbl, ts, fb, lk, km = case
+    ker = jprobe_ops.batched_probe(
+        jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
+        jnp.asarray(fb), jnp.asarray(lk), jnp.asarray(km), max_probes=32,
+        bq=32, interpret=True)
+    _assert_leaves_equal(ker, port_probe(probe_ops.batched_probe, case),
+                         PROBE_OUT)
+
+
+# ---------------------------------------------------------- commit -------
+@pytest.mark.parametrize("wrap_seed", [0, 1])
+def test_fused_commit_ref_matches_reference(wrap_seed):
+    case = commit_case(wrap_seed)
+    tbl, args = case
+    ref = jcommit_ref.fused_commit_ref(
+        _jax_table(tbl), *(jnp.asarray(a) for a in args))
+    port = port_commit(fused_commit_ref, case)
+    _assert_leaves_equal(flat_commit(ref), port, COMMIT_OUT)
+    check_lattice(port)
+
+
+def test_fused_commit_matches_pallas_interpret():
+    case = commit_case(2)
+    tbl, args = case
+    ker = jcommit_ops.fused_commit(
+        _jax_table(tbl), *(jnp.asarray(a) for a in args), interpret=True)
+    _assert_leaves_equal(flat_commit(ker),
+                         port_commit(commit_ops.fused_commit, case),
+                         COMMIT_OUT)
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    """On CPU tensors the wrappers run the plain version: no launch."""
+    before = (probe_ops.batched_probe.launches,
+              commit_ops.fused_commit.launches)
+    port_probe(probe_ops.batched_probe, probe_case(5))
+    port_commit(commit_ops.fused_commit, commit_case(3))
+    assert (probe_ops.batched_probe.launches,
+            commit_ops.fused_commit.launches) == before
