@@ -1,25 +1,46 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold its kernels
+"""Drive the PyTorch port's paths on one CUDA card and hold its kernels
 against their plain PyTorch versions.
 
-    python3 chip_smoke.py [--rounds 32] [--seed 0] [--profile-rounds 4]
+    python3 chip_smoke.py [--rounds 32] [--mix-rounds 32] [--probe-rounds 8]
+                          [--seed 0] [--profile-rounds 4]
 
 Phases, each fatal on failure:
 
-1. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each,
-   started together);
+1. build the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   each, started together);
 2. load TPC-C at one NAM-DB memory server's scale (50 warehouses, 100,000
    items, 3,000 customers per district, 60 threads) on the card;
-3. run each kernel and its plain version on clones of one real round's
-   inputs and of a constructed adversarial case: outputs and state planes
-   must be bit-identical;
-4. run ``--rounds`` new-order rounds through the kernels (key-addressed,
-   ``batched_probe`` and ``fused_commit`` on) and the same inputs from a
-   cloned start state through the plain path: per-round outcomes and the
-   final state must be identical, both kernels must have launched on the
-   main path, and some transactions must commit;
-5. time the rounds, each kernel (CUDA events) beside its bound and its
-   plain version, and profile a few rounds for the device breakdown.
+3. run ``batched_probe`` and ``fused_commit`` and their plain versions on
+   clones of one real new-order round's inputs and of a constructed
+   adversarial case: outputs and state planes must be bit-identical;
+4. new-order path: run ``--rounds`` new-order rounds through the kernels
+   (key-addressed, ``batched_probe`` and ``fused_commit`` on) and the same
+   inputs from a cloned start state through the plain path: per-round
+   outcomes and the final state must be identical, both kernels must have
+   launched, and some transactions must commit;
+5. mix path: the same for ``--mix-rounds`` rounds of the full
+   five-transaction mix (45/43/4/4/4) from the loaded state: every
+   sub-round's outcomes, every run statistic and the final state must be
+   identical, all five types must run, some delivery must deliver, some
+   order-status must find an order, and both kernels must launch inside
+   every payment and delivery sub-round;
+6. ``hash_probe`` path: ``--probe-rounds`` more mix rounds in which every
+   keyed read of an order-status or stock-level sub-round is also resolved
+   through ``kernels.hash_probe.ops.hash_probe`` on the same state and
+   keys: (a) the kernel must equal its plain version bit for bit, and its
+   locator gathered with ``mvcc.gather_version`` must equal the round's own
+   ``lookup`` + ``read_visible``; then (b) the probe bench's point (2^18
+   buckets, load 0.45, 8,192 queries, 8 old and 16 overflow versions) and
+   (c) an adversarial case over every key of the path and of records
+   written twice (absent keys, invalidated entries, and in turn a halved
+   snapshot and one a commit older), and over the same keys under a
+   snapshot that hides the newest write of one rewritten record, are held
+   the same way: some reads of (c) must be served from the old ring and
+   some from the overflow ring;
+7. time the rounds, each kernel (CUDA events) beside its bound and its
+   plain version, and profile a few rounds of each path for the device
+   breakdown.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -39,8 +60,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch._u32 import u64  # noqa: E402
-from repro_torch.core import hashtable as ht  # noqa: E402
+from repro_torch._u32 import rows_of, to_i32, u64  # noqa: E402
+from repro_torch.core import hashtable as ht, mvcc  # noqa: E402
+from repro_torch.core import header as hdr_ops  # noqa: E402
 from repro_torch.core.tsoracle import VectorOracle  # noqa: E402
 from repro_torch.db import tpcc, workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -160,30 +182,29 @@ def bound(n_bytes, n_words):
 
 
 # --------------------------------------------------- work of a call ----
-def probe_work(args, kw, out):
-    """Bytes the batched probe must move on these inputs: each lane's
-    inputs and outputs, the directory words its probe chain reads, and the
-    headers and ring counters its resolution examines; ts_vec once."""
-    dk, dv, table, ts, fb, keys, km = args
-    slot, found, src, pos = out
-    Q = fb.shape[0]
-    n_bytes = Q * (4 + 13) + ts.shape[0] * 4
-    words = 0
-    if dk is not None:
-        n_bytes += Q * 5
-        key1 = (u64(keys) + 1) & 0xFFFFFFFF
-        base = ht._hash(keys, dk.shape[0])
-        steps = torch.zeros(Q, dtype=torch.int64, device=fb.device)
-        hit = torch.zeros(Q, dtype=torch.bool, device=fb.device)
-        done = ~km
-        for p in range(kw.get("max_probes", 16)):
-            k = u64(dk[(base + p) % dk.shape[0]])
-            steps += (~done).long()
-            hit |= ~done & (k == key1)
-            done = done | (k == key1) | (k == 0)
-        n_probe = int(steps.sum())
-        n_bytes += n_probe * 4 + int(hit.sum()) * 4
-        words += n_probe
+def _chain_work(dk, keys, live, max_probes):
+    """Directory words the probe walks of the ``live`` lanes read, and the
+    lanes whose walk met their key (each then reads one value)."""
+    key1 = (u64(keys) + 1) & 0xFFFFFFFF
+    base = ht._hash(keys, dk.shape[0])
+    steps = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
+    hit = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    done = ~live
+    for p in range(max_probes):
+        k = u64(dk[(base + p) % dk.shape[0]])
+        steps += (~done).long()
+        hit |= ~done & (k == key1)
+        done = done | (k == key1) | (k == 0)
+    return int(steps.sum()), int(hit.sum())
+
+
+def _resolution_work(table, ts, slot, found, src, pos, live):
+    """Headers, ring counters and distinct ``ts_vec`` words the §5.1
+    resolutions of the ``live`` lanes examine (current, old ring up to the
+    serving version, overflow ring). A header's visibility test reads the
+    word ``ts[min(tid, n-1)]``, except for a never-written old-ring
+    sentinel, which is skipped unread; the words are counted once each, as
+    are their 32-byte sectors."""
     K, KO = table.n_old, table.ovf_hdr.shape[1]
     s = torch.where(slot >= 0, slot, 0).long().clamp(0, table.n_records - 1)
     nw = table.next_write[s].long()
@@ -192,14 +213,70 @@ def probe_work(args, kw, out):
         src == 1, torch.remainder(nw - 1 - pos, K) + 1, K))
     ovf_seen = torch.where(src == 2, torch.where(
         found, torch.remainder(on - 1 - pos, KO) + 1, KO), 0)
-    headers = Q + int(old_seen.sum()) + int(ovf_seen.sum())
-    counters = int((src != 0).sum()) + int((src == 2).sum())
-    n_bytes += headers * 8 + counters * 4
+    ages_k = torch.arange(K, device=s.device)
+    ages_o = torch.arange(KO, device=s.device)
+    oh = table.old_hdr[s[:, None], torch.remainder(nw[:, None] - 1 - ages_k,
+                                                   K)]
+    vh = table.ovf_hdr[s[:, None], torch.remainder(on[:, None] - 1 - ages_o,
+                                                   KO)]
+    old_ex = live[:, None] & (ages_k < old_seen[:, None])
+    ovf_ex = live[:, None] & (ages_o < ovf_seen[:, None])
+    sentinel = (hdr_ops.commit_ts(oh) == 0) & (hdr_ops.thread_id(oh) == 0) \
+        & hdr_ops.is_moved(oh)
+    tids = torch.cat([hdr_ops.thread_id(table.cur_hdr[s])[live],
+                      hdr_ops.thread_id(oh)[old_ex & ~sentinel],
+                      hdr_ops.thread_id(vh)[ovf_ex]])
+    words = torch.unique(tids.clamp(max=ts.shape[0] - 1))
+    headers = int(live.sum()) + int(old_ex.sum()) + int(ovf_ex.sum())
+    counters = int((live & (src != 0)).sum()) + int((live & (src == 2)).sum())
+    return (headers, counters, int(words.numel()),
+            int(torch.unique(words // 8).numel()))
+
+
+def probe_work(args, kw, out):
+    """Bytes the batched probe must move on these inputs: each lane's
+    inputs and outputs, the directory words its probe chain reads, the
+    headers and ring counters its resolution examines, and each distinct
+    ``ts_vec`` word those headers name."""
+    dk, dv, table, ts, fb, keys, km = args
+    slot, found, src, pos = out
+    Q = fb.shape[0]
+    n_bytes = Q * (4 + 13)
+    words = dir_loads = 0
+    if dk is not None:
+        n_bytes += Q * 5
+        n_probe, n_hit = _chain_work(dk, keys, km, kw.get("max_probes", 16))
+        n_bytes += n_probe * 4 + n_hit * 4
+        words += n_probe
+        dir_loads = n_probe + n_hit
+    headers, counters, ts_words, ts_sectors = _resolution_work(
+        table, ts, slot, found, src, pos,
+        torch.ones(Q, dtype=torch.bool, device=fb.device))
+    n_bytes += headers * 8 + counters * 4 + ts_words * 4
     words += 2 * headers + counters
-    # random loads, one 32-byte sector each: probes, values, headers, ring
-    # counters and a ts_vec word per header
-    dir_loads = n_probe + int(hit.sum()) if dk is not None else 0
-    sectors = dir_loads + 2 * headers + counters
+    # random loads, one 32-byte sector each: probes, values, headers and
+    # ring counters, and the sectors of ts_vec they name
+    sectors = dir_loads + headers + counters + ts_sectors
+    return n_bytes, words, sectors
+
+
+def hash_probe_work(args, kw, out):
+    """Bytes the single-key probe must move on these inputs: each query and
+    its outputs, the directory words its walk reads, one value per met key,
+    and for the found keys only the headers and ring counters of their
+    resolution and each distinct ``ts_vec`` word those headers name."""
+    dk, dv, table, ts, queries = args
+    slot, found, src, pos = out
+    Q = queries.shape[0]
+    n_probe, n_hit = _chain_work(
+        dk, queries, torch.ones(Q, dtype=torch.bool, device=queries.device),
+        kw.get("max_probes", 16))
+    headers, counters, ts_words, ts_sectors = _resolution_work(
+        table, ts, slot, found, src, pos, slot >= 0)
+    n_bytes = Q * (4 + 13) + (n_probe + n_hit) * 4 + headers * 8 \
+        + counters * 4 + ts_words * 4
+    words = n_probe + 2 * headers + counters
+    sectors = n_probe + n_hit + headers + counters + ts_sectors
     return n_bytes, words, sectors
 
 
@@ -222,10 +299,11 @@ def commit_work(args, out):
     return n_bytes, words, sectors
 
 
-def timed_run(cfg, lay, st, oracle, stream, n_rounds):
-    """``run_neworder_rounds`` with each round's host time: it calls
-    ``draw`` once at the start of every round and synchronises on the
-    round's outcome before the next, so the gaps between draws are rounds."""
+def timed_run(driver, cfg, lay, st, oracle, stream, n_rounds):
+    """``driver`` (``run_neworder_rounds`` or ``run_mixed_rounds``) with
+    each round's host time: the driver calls ``draw`` once at the start of
+    every round and synchronises on the round's outcomes within it, so the
+    gaps between draws are rounds, and their sum is the run."""
     stamps = []
 
     def draw(r):
@@ -233,11 +311,63 @@ def timed_run(cfg, lay, st, oracle, stream, n_rounds):
         return stream(r)
 
     torch.cuda.synchronize()
-    st, stats = tpcc.run_neworder_rounds(cfg, lay, st, oracle, draw,
-                                         n_rounds, device="cuda")
+    st, stats = driver(cfg, lay, st, oracle, draw, n_rounds, device="cuda")
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     return st, stats, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def launch_counts():
+    return {"batched_probe": probe_ops.batched_probe.launches,
+            "fused_commit": commit_ops.fused_commit.launches,
+            "hash_probe": probe_ops.hash_probe.launches}
+
+
+def reset_launch_counts():
+    probe_ops.batched_probe.launches = 0
+    probe_ops.hash_probe.launches = 0
+    commit_ops.fused_commit.launches = 0
+
+
+# the outcome of each sub-round of the mix, as the driver sees it
+OUTCOMES = {"neworder_round": ("committed", "snapshot_miss", "o_id"),
+            "payment_round": ("committed", "snapshot_miss"),
+            "delivery_round": ("committed", "delivered", "snapshot_miss"),
+            "orderstatus_round": ("result", "found"),
+            "stocklevel_round": ("result", "found")}
+
+
+class SubRounds:
+    """While active, wraps the mix's five round functions: each call logs
+    clones of its outcome tensors and the kernel launches it made."""
+
+    def __init__(self):
+        self.log = []
+
+    def __enter__(self):
+        self.orig = {n: getattr(tpcc, n) for n in OUTCOMES}
+        for n, fn in self.orig.items():
+            setattr(tpcc, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(tpcc, n, fn)
+
+    def _wrap(self, name, fn):
+        def run(*a, **k):
+            before = launch_counts()
+            out = fn(*a, **k)
+            after = launch_counts()
+            self.log.append((name, tuple(getattr(out, f).clone()
+                                         for f in OUTCOMES[name]),
+                             {n: after[n] - before[n] for n in after}))
+            return out
+        return run
+
+    def launches(self, name):
+        """Per call of round function ``name``: its kernel launches."""
+        return [d for n, _, d in self.log if n == name]
 
 
 # ---------------------------------------------------------- capture ----
@@ -327,10 +457,11 @@ def flat_commit(out):
     return tuple(out.table) + tuple(out[1:])
 
 
-def time_kernels(p_args, p_kw, c_args, launches, report, n_time=200):
-    """Each kernel's time (CUDA events over ``n_time`` launches on the same
-    buffers), its plain version's time and its bound, at one real round's
-    shapes; returns the kernels' JSON records."""
+def time_kernels(p_args, p_kw, c_args, n_time=200):
+    """``batched_probe``'s and ``fused_commit``'s times (CUDA events over
+    ``n_time`` launches on the same buffers), their plain versions' times
+    and their work, at one real new-order round's shapes:
+    ``{name: (ms, host_ms, plain_ms, (bytes, words, sectors))}``."""
     launch = probe_ops.prepare(*p_args, **p_kw)
     for _ in range(10):
         launch()
@@ -367,46 +498,222 @@ def time_kernels(p_args, p_kw, c_args, launches, report, n_time=200):
     commit_work_ = commit_work(
         base, commit_ref.fused_commit_ref(*clone(base)))
     torch.cuda.synchronize()
+    return {"batched_probe": (probe_ms, probe_host_ms, probe_plain_ms,
+                              probe_work_),
+            "fused_commit": (commit_ms, commit_host_ms, commit_plain_ms,
+                             commit_work_)}
 
-    kernels = []
-    for name, src, replaces, ms, host_ms, plain_ms, (nb, nw, ns) in (
-            ("batched_probe", "src/repro_torch/csrc/batched_probe.cu",
-             "src/repro/kernels/hash_probe/kernel.py:231", probe_ms,
-             probe_host_ms, probe_plain_ms, probe_work_),
-            ("fused_commit", "src/repro_torch/csrc/fused_commit.cu",
-             "src/repro/kernels/commit/kernel.py:126", commit_ms,
-             commit_host_ms, commit_plain_ms, commit_work_)):
-        bound_ms, bound_by = bound(nb, nw)
-        sector_ms = ns * 32 / HBM_BYTES_PER_S * 1e3
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=report[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, match=report[name] == 0, bytes=nb,
-            random_sectors=ns, sector_bound_ms=sector_ms, host_ms=host_ms))
-        print(f"{name}: {ms * 1e3:.2f} us/launch on the device (CUDA "
-              f"events, GPU held while queued), {host_ms * 1e3:.2f} us per "
-              f"synchronised call on the host clock, plain "
-              f"{plain_ms * 1e3:.1f} us, bound "
-              f"{bound_ms * 1e3:.4f} us ({bound_by}, {nb} B); "
-              f"{ns} random 32-byte sectors: {sector_ms * 1e3:.4f} us")
 
-    return kernels
+def time_hash_probe(args, kw, n_time=200):
+    """``hash_probe``'s time (CUDA events, GPU held), its time per
+    synchronised call, its plain version's time and its work on
+    ``args``."""
+    launch = probe_ops.prepare_hash_probe(*args, **kw)
+    for _ in range(10):
+        launch()
+    ms = time_events(launch, n_time, hold=True)
+    host_ms = time_host(launch, 50)
+    plain_ms = time_events(lambda: probe_ref.hash_probe_ref(*args, **kw), 20)
+    work = hash_probe_work(args, kw, probe_ref.hash_probe_ref(*args, **kw))
+    torch.cuda.synchronize()
+    return ms, host_ms, plain_ms, work
+
+
+KERNEL_SOURCES = {
+    "batched_probe": ("src/repro_torch/csrc/batched_probe.cu",
+                      "src/repro/kernels/hash_probe/kernel.py:231"),
+    "fused_commit": ("src/repro_torch/csrc/fused_commit.cu",
+                     "src/repro/kernels/commit/kernel.py:126"),
+    "hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
+                   "src/repro/kernels/hash_probe/kernel.py:191"),
+}
+
+
+def kernel_record(name, launches, by_path, err, timing, label=""):
+    """One kernel's entry of the JSON line, printed as it is built."""
+    ms, host_ms, plain_ms, (nb, nw, ns) = timing
+    src, replaces = KERNEL_SOURCES[name]
+    bound_ms, bound_by = bound(nb, nw)
+    sector_ms = ns * 32 / HBM_BYTES_PER_S * 1e3
+    print(f"{name}{label}: {ms * 1e3:.2f} us/launch on the device (CUDA "
+          f"events, GPU held while queued), {host_ms * 1e3:.2f} us per "
+          f"synchronised call on the host clock, plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.4f} us "
+          f"({bound_by}, {nb} B); {ns} random 32-byte sectors: "
+          f"{sector_ms * 1e3:.4f} us")
+    return dict(name=name, route="cuda", source=src, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, match=err == 0, launches_by_path=by_path,
+                bytes=nb, random_sectors=ns, sector_bound_ms=sector_ms,
+                host_ms=host_ms)
+
+
+# ------------------------------------------------------- hash_probe ----
+def check_gather(args, kw, out, what, read=None):
+    """``mvcc.gather_version`` over the probe's locator must equal
+    ``read`` — ``(data, found)`` of the same keys by ``lookup`` +
+    ``read_visible``, computed here when not given — on found lanes, and
+    the found masks must agree."""
+    dk, dv, table, ts, q = args
+    slot, found, src, pos = out
+    _, data = mvcc.gather_version(table, torch.where(found, slot, 0),
+                                  mvcc.VersionLoc(found, src, pos))
+    if read is None:
+        vals, kf = ht.lookup(ht.HashTable(dk, dv), q,
+                             max_probes=kw["max_probes"])
+        vr = mvcc.read_visible(table, torch.where(kf, vals, 0), ts)
+        read = (vr.data, kf & vr.found)
+    check(torch.equal(found, read[1]),
+          f"{what}: found lanes differ from lookup + read_visible")
+    check(torch.equal(data[found], read[0][found]),
+          f"{what}: gathered versions differ from lookup + read_visible")
+
+
+def probe_summary(out):
+    slot, found, src, _ = out
+    return (f"Q={slot.shape[0]} found {int(found.sum())} missing keys "
+            f"{int((slot < 0).sum())} src0/1/2 "
+            f"{[int((found & (src == s)).sum()) for s in range(3)]}")
+
+
+class ProbeShadow:
+    """While active, every keyed read of an order-status or stock-level
+    sub-round (``tpcc._snapshot_read`` with keys) is also resolved through
+    ``ops.hash_probe`` on the same state, snapshot and keys (the lanes its
+    key mask selects): the kernel must equal its plain version bit for bit,
+    and its locator gathered must equal the round's own read. A read with
+    no keyed lane is left alone: there is nothing to launch."""
+
+    def __init__(self):
+        self.err = 0
+        self.calls = 0          # reads with keyed lanes, one launch each
+        self.lanes = self.found = self.missing = 0
+        self.src = [0, 0, 0]
+        self.kinds = {}
+        self.largest = None     # (queries, snapshot) of the widest launch
+        self.queries = []       # every launch's queries
+        self.last_vec = None
+
+    def __enter__(self):
+        self.orig = tpcc._snapshot_read
+        tpcc._snapshot_read = self._read
+        return self
+
+    def __exit__(self, *exc):
+        tpcc._snapshot_read = self.orig
+
+    def _read(self, st, vec, slots, keys=None, key_mask=None):
+        out = self.orig(st, vec, slots, keys, key_mask)
+        if keys is not None:
+            self._shadow(st, vec, keys, key_mask, out)
+        return out
+
+    def _shadow(self, st, vec, keys, key_mask, out):
+        km = key_mask.reshape(-1)
+        q = keys.reshape(-1)[km].contiguous()
+        if q.shape[0] == 0:
+            return
+        self.calls += 1
+        args = (st.directory.keys, st.directory.vals, st.nam.table, vec, q)
+        kw = dict(max_probes=tpcc.DIR_PROBES)
+        ker = probe_ops.hash_probe(*args, **kw)
+        plain = probe_ref.hash_probe_ref(*args, **kw)
+        what = "hash_probe (a: the mix's read-only keys)"
+        self.err = max(self.err, same(ker, plain, what))
+        data = out[0].reshape(-1, out[0].shape[-1])[km]
+        check_gather(args, kw, ker, what, read=(data, out[1].reshape(-1)[km]))
+        slot, found, src, _ = ker
+        kind = "orderstatus customers" if keys.shape[1] == 2 \
+            else "stocklevel stocks"
+        self.kinds[kind] = self.kinds.get(kind, 0) + q.shape[0]
+        self.lanes += q.shape[0]
+        self.found += int(found.sum())
+        self.missing += int((slot < 0).sum())
+        for s in range(3):
+            self.src[s] += int((found & (src == s)).sum())
+        if self.largest is None or q.shape[0] > self.largest[0].shape[0]:
+            self.largest = (q.clone(), vec.clone())
+        self.queries.append(q.clone())
+        self.last_vec = vec.clone()
+
+
+def probe_bench_case(dev, n_buckets=1 << 18, n_queries=8192, n_old=8,
+                     n_overflow=16, width=8, max_probes=16, load=0.45):
+    """The point of the probe bench (``bench_tpcc_scaling.py --probe``),
+    rebuilt: one record per directory entry, a fresh table with §5.3-sized
+    rings, the keys ``i * 2654435761 mod 2^31``, the queries those keys
+    repeated. Returns ``(args, kw)`` of ``hash_probe``."""
+    tbl = mvcc.init_table(n_buckets, width, n_old=n_old,
+                          n_overflow=n_overflow, device=dev)
+    n = int(n_buckets * load)
+    i = torch.arange(1, n + 1, dtype=torch.int64, device=dev)
+    keys = ((i * 2654435761) % (1 << 31)).to(torch.int32)
+    d, placed = ht.insert(ht.init(n_buckets, device=dev), keys,
+                          (torch.arange(n, device=dev) % n_buckets)
+                          .to(torch.int32), max_probes=64)
+    check(bool((placed >= 0).all()), "probe bench directory overflowed")
+    qs = keys.repeat(-(-n_queries // n))[:n_queries].contiguous()
+    return ((d.keys, d.vals, tbl, torch.zeros(8, dtype=torch.int32,
+                                              device=dev), qs),
+            dict(max_probes=max_probes))
+
+
+def rewritten_records(table, dk, dv, vec, n=256):
+    """Keys of up to ``n`` directory records whose old ring holds a usable
+    candidate (neither a never-written sentinel nor deleted), and the
+    snapshot ``vec`` with the writer's entry of the first such record whose
+    current version has a nonzero stamp set just below that stamp: the
+    current version is hidden and an older one is served from the old ring
+    (a thread's stamps rise, and ``vec`` shows every other commit)."""
+    live = rows_of((dk != 0) & (dv >= 0))
+    slots = dv[live].long().clamp(max=table.n_records - 1)
+    oh = table.old_hdr[slots]
+    cand = ~((hdr_ops.commit_ts(oh) == 0) & (hdr_ops.thread_id(oh) == 0)
+             & hdr_ops.is_moved(oh)) & ~hdr_ops.is_deleted(oh)
+    cur = table.cur_hdr[slots]
+    pick = rows_of(cand.any(dim=1) & (hdr_ops.commit_ts(cur) != 0))[:n]
+    check(pick.numel() > 0, "no directory record was written twice")
+    keys = ((u64(dk[live[pick]]) - 1) & 0xFFFFFFFF)
+    first = cur[pick[0]]
+    tid = int(hdr_ops.thread_id(first).clamp(max=vec.shape[0] - 1))
+    vec = vec.clone()
+    vec[tid] = to_i32(u64(hdr_ops.commit_ts(first)) - 1)
+    return to_i32(keys), vec
+
+
+# older snapshots for the adversarial case: each hides recent versions so
+# that reads reach the old and overflow rings
+OLDER_SNAPSHOTS = {"halved snapshot": lambda t: t // 2,
+                   "snapshot one commit older": lambda t: (t - 1).clamp(min=0)}
+
+
+def adversarial_hash_probe(args, older):
+    """Real keys made hostile: absent keys, a key whose +1 wraps to the
+    empty marker, invalidated directory entries, and the snapshot
+    ``older(T_R)`` (uint32 values as int64)."""
+    dk, dv, table, ts, q = args
+    dv, q = dv.clone(), q.clone()
+    lane = torch.arange(q.shape[0], device=q.device)
+    hit = torch.isin(u64(dk), (u64(q[::7]) + 1) & 0xFFFFFFFF)
+    dv[hit] = -1
+    q[lane % 10 == 3] = 0x5EADBEEF
+    q[5 % q.shape[0]] = -1
+    return dk, dv, table, older(u64(ts)).to(torch.int32), q
 
 
 # --------------------------------------------------------- profiling ----
-def profile_rounds(cfg, lay, st, oracle, stream, n_rounds):
-    """Device time by kernel over ``n_rounds`` rounds and the idle share:
-    the device-side events of the trace (kernels, copies, fills), which run
-    one at a time on the one stream, summed by name."""
+def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
+    """Device time by kernel over ``n_rounds`` rounds of ``driver`` and the
+    idle share: the device-side events of the trace (kernels, copies,
+    fills), which run one at a time on the one stream, summed by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tpcc.run_neworder_rounds(cfg, lay, st, oracle, stream, n_rounds,
-                                 device="cuda")
+        driver(cfg, lay, st, oracle, stream, n_rounds, device="cuda")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -420,10 +727,35 @@ def profile_rounds(cfg, lay, st, oracle, stream, n_rounds):
     return wall_us, busy_us, rows
 
 
+def print_profile(label, n_rounds, wall_us, busy_us, rows):
+    print(f"profile, {label}: {n_rounds} rounds, wall {wall_us / 1e3:.3f} "
+          f"ms, device busy {busy_us / 1e3:.3f} ms (idle share "
+          f"{1 - busy_us / wall_us:.3f})")
+    ours = ("batched_probe_kernel", "hash_probe_kernel", "reset_kernel",
+            "bid_kernel", "grant_kernel", "apply_kernel")
+    shown = rows[:14] + [r for r in rows[14:]
+                         if any(k in r[0] for k in ours)]
+    for key, t_us, count in shown:
+        print(f"  {t_us / 1e3:9.3f} ms  {count:6d}x  {key[:70]}")
+
+
+def print_round_times(label, rounds, commits, what):
+    q = torch.tensor(rounds[1:] or rounds, dtype=torch.float64) * 1e3
+    print(f"round time, {label}: first {rounds[0] * 1e3:.3f} ms, then "
+          f"median {q.median():.3f} ms, min {q.min():.3f}, max "
+          f"{q.max():.3f} over {len(q)} rounds (host clock); "
+          f"{commits / sum(rounds):.1f} committed {what}/s")
+
+
 # -------------------------------------------------------------- main ----
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rounds", type=int, default=32)
+    ap.add_argument("--rounds", type=int, default=32,
+                    help="new-order rounds of phase 4")
+    ap.add_argument("--mix-rounds", type=int, default=32,
+                    help="full-mix rounds of phase 5")
+    ap.add_argument("--probe-rounds", type=int, default=8,
+                    help="full-mix rounds of the hash_probe path (phase 6)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-rounds", type=int, default=4)
     args = ap.parse_args(argv)
@@ -444,6 +776,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
+    check(sorted(logs) == sorted(KERNEL_SOURCES),
+          f"built {sorted(logs)}, expected {sorted(KERNEL_SOURCES)}")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -466,9 +800,14 @@ def main(argv=None):
           f"pool {pool_bytes / 1e9:.3f} GB, directory "
           f"{st.directory.n_buckets} buckets, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    st_mix = clone(st)              # the mix starts from the loaded state
 
     def stream(seed):
         return workload.neworder_stream(
+            cfg, torch.Generator(device=dev).manual_seed(seed))
+
+    def mix_stream(seed):
+        return workload.mixed_stream(
             cfg, torch.Generator(device=dev).manual_seed(seed))
 
     # ---- 3. kernels against their plain versions ---------------------------
@@ -485,8 +824,7 @@ def main(argv=None):
               f"{int(ker[1].sum())} src0/1/2 "
               f"{[int((ker[2] == s).sum()) for s in range(3)]} slot<0 "
               f"{int((ker[0] < 0).sum())}: bit-identical")
-        report.setdefault("batched_probe", 0)
-        report["batched_probe"] = max(report["batched_probe"], err)
+        report["batched_probe"] = max(report.get("batched_probe", 0), err)
     for label, ca in (("real", c_args), ("adversarial",
                                          adversarial_commit(c_args))):
         ker = commit_ops.fused_commit(*clone(ca))
@@ -502,53 +840,172 @@ def main(argv=None):
                                      f"reach every outcome: {lat}")
         report["fused_commit"] = max(report.get("fused_commit", 0), err)
 
-    # ---- 4. end to end: kernels vs the plain path ---------------------------
+    # ---- 4. new-order path: kernels vs the plain path -----------------------
     st_plain = clone(st)
-    probe_ops.batched_probe.launches = 0
-    commit_ops.fused_commit.launches = 0
-    st_k, stats_k, rounds_k = timed_run(cfg, lay, st, oracle,
+    reset_launch_counts()
+    st_k, stats_k, rounds_k = timed_run(tpcc.run_neworder_rounds, cfg, lay,
+                                        st, oracle, stream(args.seed + 1),
+                                        args.rounds)
+    no_launches = launch_counts()
+    st_p, stats_p, rounds_p = timed_run(tpcc.run_neworder_rounds, plain_cfg,
+                                        lay, st_plain, oracle,
                                         stream(args.seed + 1), args.rounds)
-    launches = {"batched_probe": probe_ops.batched_probe.launches,
-                "fused_commit": commit_ops.fused_commit.launches}
-    st_p, stats_p, rounds_p = timed_run(plain_cfg, lay, st_plain, oracle,
-                                        stream(args.seed + 1), args.rounds)
-    wall_k, wall_p = sum(rounds_k), sum(rounds_p)
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel did not launch on the main path: {launches}")
+    check(no_launches["batched_probe"] > 0 and no_launches["fused_commit"] > 0,
+          f"a kernel did not launch on the new-order path: {no_launches}")
     check(stats_k.commits > 0, "no transaction committed")
     same(stats_k.committed, stats_p.committed, "per-round commits")
     same(stats_k.missed, stats_p.missed, "per-round snapshot misses")
-    same(st_k, st_p, "final state")
+    same(st_k, st_p, "new-order final state")
     check(tuple(stats_k.ops) == tuple(stats_p.ops)
           and stats_k[1:5] == stats_p[1:5], "run statistics differ")
-    print(f"end to end: {args.rounds} rounds, launches {launches}, commits "
-          f"{stats_k.commits}/{stats_k.attempts} (abort rate "
+    del st_plain, st_p
+    print(f"new-order path: {args.rounds} rounds, launches {no_launches}, "
+          f"commits {stats_k.commits}/{stats_k.attempts} (abort rate "
           f"{stats_k.abort_rate:.4f}, snapshot misses "
           f"{stats_k.snapshot_misses}); kernels and plain path identical")
-    for label, rounds, stats in (("kernels", rounds_k, stats_k),
-                                 ("plain", rounds_p, stats_p)):
-        q = torch.tensor(rounds[1:] or rounds, dtype=torch.float64) * 1e3
-        print(f"round time, {label}: first {rounds[0] * 1e3:.3f} ms, then "
-              f"median {q.median():.3f} ms, min {q.min():.3f}, max "
-              f"{q.max():.3f} over {len(q)} rounds (host clock); "
-              f"{stats.commits / sum(rounds):.1f} committed new-orders/s")
+    for label, rounds, stats in (("new-order, kernels", rounds_k, stats_k),
+                                 ("new-order, plain", rounds_p, stats_p)):
+        print_round_times(label, rounds, stats.commits, "new-orders")
 
-    # ---- 5. timings ---------------------------------------------------------
-    kernels = time_kernels(p_args, p_kw, c_args, launches, report)
+    # ---- 5. mix path: kernels vs the plain path ------------------------------
+    st_mix_plain = clone(st_mix)
+    reset_launch_counts()
+    with SubRounds() as sub_k:
+        st_mk, mstats_k, mrounds_k = timed_run(
+            tpcc.run_mixed_rounds, cfg, lay, st_mix, oracle,
+            mix_stream(args.seed + 3), args.mix_rounds)
+    mix_launches = launch_counts()
+    with SubRounds() as sub_p:
+        st_mp, mstats_p, mrounds_p = timed_run(
+            tpcc.run_mixed_rounds, plain_cfg, lay, st_mix_plain, oracle,
+            mix_stream(args.seed + 3), args.mix_rounds)
+    check(mix_launches["batched_probe"] > 0 and mix_launches["fused_commit"]
+          > 0, f"a kernel did not launch on the mix path: {mix_launches}")
+    check([n for n, _, _ in sub_k.log] == [n for n, _, _ in sub_p.log],
+          "the two mix runs ran different sub-rounds")
+    for i, ((n, ok, _), (_, op, _)) in enumerate(zip(sub_k.log, sub_p.log)):
+        same(ok, op, f"mix sub-round {i} ({n}) outcomes")
+    same(st_mk, st_mp, "mix final state")
+    for f in mstats_k._fields:
+        a, b = getattr(mstats_k, f), getattr(mstats_p, f)
+        check(a == b or (a != a and b != b), f"mix statistic {f} differs")
+    del st_mix_plain, st_mp
+    names = workload.TXN_TYPES
+    check(all(mstats_k.attempts[n] > 0 for n in names),
+          f"a transaction type never ran: {mstats_k.attempts}")
+    check(mstats_k.delivered > 0, "no delivery delivered an order")
+    check(any(bool(o[1].any()) for n, o, _ in sub_k.log
+              if n == "orderstatus_round"),
+          "no order-status found an order")
+    for n in ("payment_round", "delivery_round"):
+        per_call = sub_k.launches(n)
+        check(bool(per_call) and all(
+            d["batched_probe"] == 1 and d["fused_commit"] == 1
+            for d in per_call),
+            f"{n}: the kernels did not launch once in every sub-round: "
+            f"{per_call}")
+    sub_launches = {n[:-len("_round")]: {
+        k: sum(d[k] for d in sub_k.launches(n))
+        for k in ("batched_probe", "fused_commit")} for n in OUTCOMES}
+    wall_m = sum(mrounds_k)
+    print(f"mix path: {args.mix_rounds} rounds, launches {mix_launches} "
+          f"(by sub-round {sub_launches}); kernels and plain path "
+          f"identical in {len(sub_k.log)} sub-rounds")
+    print(f"mix: attempts {mstats_k.attempts}, commits {mstats_k.commits}, "
+          f"retries {mstats_k.retries}, snapshot misses "
+          f"{mstats_k.snapshot_misses}, contention aborts "
+          f"{mstats_k.contention_aborts}, delivered {mstats_k.delivered}, "
+          f"abort rate {mstats_k.abort_rate:.4f}, new-order share "
+          f"{tpcc.neworder_share(mstats_k):.4f}")
+    for label, rounds, stats in (("mix, kernels", mrounds_k, mstats_k),
+                                 ("mix, plain", mrounds_p, mstats_p)):
+        print_round_times(label, rounds, stats.total_commits,
+                          "transactions")
+    print(f"mix, kernels: {mstats_k.commits['neworder'] / wall_m:.1f} "
+          f"committed new-orders/s, "
+          + ", ".join(f"{n} {mstats_k.commits[n] / wall_m:.1f}/s"
+                      for n in names[1:]))
+
+    # ---- 6. hash_probe path: the mix's read-only keys ----------------------
+    reset_launch_counts()
+    with ProbeShadow() as shadow:
+        st_pr, _ = tpcc.run_mixed_rounds(cfg, lay, st_mk, oracle,
+                                         mix_stream(args.seed + 4),
+                                         args.probe_rounds, device="cuda")
+    torch.cuda.synchronize()
+    probe_launches = launch_counts()
+    check(probe_launches["hash_probe"] > 0,
+          f"hash_probe did not launch on its path: {probe_launches}")
+    check(probe_launches["hash_probe"] == shadow.calls,
+          f"hash_probe launched {probe_launches['hash_probe']} times for "
+          f"{shadow.calls} reads with keyed lanes")
+    check(shadow.found > 0, "no read-only key found a version")
+    print(f"hash_probe path: {args.probe_rounds} mix rounds, "
+          f"{probe_launches['hash_probe']} launches over {shadow.lanes} keys "
+          f"{shadow.kinds}: found {shadow.found}, missing keys "
+          f"{shadow.missing}, src0/1/2 {shadow.src}; (a) bit-identical to "
+          f"the plain version, gathered versions equal the rounds' reads")
+    report["hash_probe"] = shadow.err
+    d = st_pr.directory
+    q_a, vec_a = shadow.largest
+    a_args = (d.keys, d.vals, st_pr.nam.table, vec_a, q_a)
+    a_kw = dict(max_probes=tpcc.DIR_PROBES)
+    b_args, b_kw = probe_bench_case(dev)
+    # (c) over every key of the path and the rewritten records, on the
+    # final state, and over the rewritten records with the newest write of
+    # one hidden
+    tw_keys, tw_vec = rewritten_records(
+        st_pr.nam.table, d.keys, d.vals, oracle.read(st_pr.nam.oracle_state))
+    every = (d.keys, d.vals, st_pr.nam.table, shadow.last_vec,
+             torch.cat(shadow.queries + [tw_keys]))
+    cases = [("b: probe bench point", b_args, b_kw)] + [
+        (f"c: adversarial, {name}", adversarial_hash_probe(every, older),
+         a_kw) for name, older in OLDER_SNAPSHOTS.items()] + [
+        ("c: adversarial, rewritten records, newest write of one hidden",
+         (d.keys, d.vals, st_pr.nam.table, tw_vec, every[4]), a_kw)]
+    src_c = [0, 0, 0]
+    for label, pa, kw in cases:
+        ker = probe_ops.hash_probe(*pa, **kw)
+        plain = probe_ref.hash_probe_ref(*pa, **kw)
+        torch.cuda.synchronize()
+        report["hash_probe"] = max(report["hash_probe"],
+                                   same(ker, plain, f"hash_probe ({label})"))
+        check_gather(pa, kw, ker, f"hash_probe ({label})")
+        if label.startswith("c"):
+            for i in range(3):
+                src_c[i] += int((ker[1] & (ker[2] == i)).sum())
+        print(f"hash_probe ({label}): {probe_summary(ker)}: bit-identical, "
+              f"gathered versions equal lookup + read_visible")
+    check(src_c[1] > 0 and src_c[2] > 0, f"the adversarial snapshots did "
+          f"not serve reads from both rings: found src0/1/2 {src_c}")
+
+    # ---- 7. timings ---------------------------------------------------------
+    timed = time_kernels(p_args, p_kw, c_args)
+    kernels = [kernel_record(
+        n, mix_launches[n], {"neworder": no_launches[n],
+                             "mix": mix_launches[n]}, report[n], timed[n],
+        " (one new-order round's inputs)")
+        for n in ("batched_probe", "fused_commit")]
+    kernels.append(kernel_record(
+        "hash_probe", probe_launches["hash_probe"],
+        {"mix_readonly_keys": probe_launches["hash_probe"]},
+        report["hash_probe"], time_hash_probe(a_args, a_kw),
+        f" (the widest read-only launch, Q={q_a.shape[0]})"))
+    bench = kernel_record("hash_probe", 0, {}, report["hash_probe"],
+                          time_hash_probe(b_args, b_kw),
+                          f" (probe bench point, Q={b_args[4].shape[0]})")
+    kernels[-1]["bench_point"] = {k: bench[k] for k in (
+        "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+        "random_sectors", "sector_bound_ms")}
 
     # ---- breakdown of a few more rounds (device time by kernel) -------------
     if args.profile_rounds:
-        wall_us, busy_us, rows = profile_rounds(
-            cfg, lay, st_k, oracle, stream(args.seed + 2), args.profile_rounds)
-        print(f"profile: {args.profile_rounds} rounds, wall "
-              f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-              f"(idle share {1 - busy_us / wall_us:.3f})")
-        ours = ("batched_probe_kernel", "reset_kernel", "bid_kernel",
-                "grant_kernel", "apply_kernel")
-        shown = rows[:14] + [r for r in rows[14:]
-                             if any(k in r[0] for k in ours)]
-        for key, t_us, count in shown:
-            print(f"  {t_us / 1e3:9.3f} ms  {count:6d}x  {key[:70]}")
+        print_profile("new-order", args.profile_rounds, *profile_rounds(
+            tpcc.run_neworder_rounds, cfg, lay, st_k, oracle,
+            stream(args.seed + 2), args.profile_rounds))
+        print_profile("mix", args.profile_rounds, *profile_rounds(
+            tpcc.run_mixed_rounds, cfg, lay, st_pr, oracle,
+            mix_stream(args.seed + 5), args.profile_rounds))
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")

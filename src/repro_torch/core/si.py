@@ -108,6 +108,27 @@ def count_ops(oracle, batch: TxnBatch, txn_found, from_current, n_installs,
         + n_txns * vec_bytes + n_index_probes * DIR_PROBE_BYTES)
 
 
+def count_readonly_ops(oracle, read_mask, from_current, n_txns,
+                       payload_width: int, payload_bytes: int = 0,
+                       n_index_probes=0) -> OpCounts:
+    """RDMA-op accounting for a round of read-only transactions: one vector
+    fetch per transaction and one read per record (old-version probes
+    counted like the write path's), no CAS and no writes (§1.2);
+    ``n_index_probes`` charges the §5.2 directory probes."""
+    n_reads = read_mask.sum()
+    vec_bytes = 4 * getattr(oracle, "n_slots", 1)
+    rec_bytes = 8 + 4 * payload_width if payload_bytes == 0 else payload_bytes
+    zero = torch.zeros((), dtype=torch.int64, device=read_mask.device)
+    return OpCounts(
+        ts_reads=torch.as_tensor(n_txns),
+        ts_read_bytes=torch.as_tensor(n_txns * vec_bytes),
+        record_reads=n_reads + (~from_current & read_mask).sum()
+        + n_index_probes,
+        cas_ops=zero, writes=zero,
+        bytes_moved=n_reads * rec_bytes + n_txns * vec_bytes
+        + n_index_probes * DIR_PROBE_BYTES)
+
+
 class CommitOut(NamedTuple):
     """Outputs of one commit phase over a flat request array (Q = T*WS)."""
     table: VersionedTable

@@ -14,6 +14,7 @@
 // header, old ring newest-first (skipping the never-written sentinel), then
 // the overflow ring. A version is usable iff cts <= T_R[min(tid, n-1)] and
 // its deleted bit is clear. n_buckets == 0 skips the directory (locate-only).
+// The walk and the location are probe_common.cuh's, shared with hash_probe.cu.
 //
 // Bound: the loads are random, so each touches its own 32-byte sector:
 // the probe chain's keys, one value, 1 + K + KO headers (one 8-byte load
@@ -24,22 +25,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe_common.cuh"
+
 namespace {
-
-constexpr uint32_t kDeleted = 1u << 1;
-constexpr uint32_t kMoved = 1u << 2;
-constexpr int kThreadShift = 3;
-
-__device__ __forceinline__ bool usable(uint2 h, const uint32_t* ts, int n_ts) {
-  uint32_t tid = h.x >> kThreadShift;
-  uint32_t t = ts[tid < (uint32_t)(n_ts - 1) ? tid : (uint32_t)(n_ts - 1)];
-  return h.y <= t && (h.x & kDeleted) == 0;
-}
-
-__device__ __forceinline__ int ring_pos(int next, int age, int k) {
-  int p = (next - 1 - age) % k;  // jnp.mod: the result takes k's sign
-  return p < 0 ? p + k : p;
-}
 
 __global__ void batched_probe_kernel(
     const uint32_t* __restrict__ dir_keys, const int32_t* __restrict__ dir_vals,
@@ -58,22 +46,8 @@ __global__ void batched_probe_kernel(
   // ---- 1. slot: directory probe (keyed lanes) or the fallback slot -------
   const bool keyed = n_buckets > 0 && key_mask[q] != 0;
   int32_t val = -1;
-  bool got = false;
-  if (keyed) {
-    const uint32_t key = keys[q];
-    const uint32_t key1 = key + 1u;
-    const uint64_t base = (uint64_t)(key * 2654435769u) % (uint64_t)n_buckets;
-    for (int p = 0; p < max_probes; ++p) {
-      const uint64_t idx = (base + (uint64_t)p) % (uint64_t)n_buckets;
-      const uint32_t k = dir_keys[idx];
-      if (k == key1) {
-        val = dir_vals[idx];
-        got = val >= 0;
-        break;
-      }
-      if (k == 0u) break;
-    }
-  }
+  const bool got = keyed && probe::dir_probe(dir_keys, dir_vals, n_buckets,
+                                             max_probes, keys[q], &val);
   const int32_t fb = fallback[q];
   int64_t slot;
   if (keyed) {
@@ -84,49 +58,15 @@ __global__ void batched_probe_kernel(
   }
   if (slot >= n_rec) slot = n_rec - 1;  // a corrupt directory value
 
-  // ---- 2. current version --------------------------------------------------
-  const bool cur_ok = usable(cur_hdr[slot], ts_vec, n_ts);
+  // ---- 2. newest usable version: current, old ring, overflow ring --------
+  const probe::Loc loc = probe::resolve_versions(
+      slot, cur_hdr, old_hdr, next_write, ovf_hdr, ovf_next, ts_vec, n_ts,
+      k_old, k_ovf);
 
-  // ---- 3. old-version ring, newest first -----------------------------------
-  const int nw = next_write[slot];
-  int old_pos = ring_pos(nw, 0, k_old);
-  bool any_old = false;
-  if (!cur_ok) {
-    for (int a = 0; a < k_old; ++a) {
-      const int p = ring_pos(nw, a, k_old);
-      const uint2 h = old_hdr[slot * k_old + p];
-      const bool sentinel = h.y == 0u && (h.x >> kThreadShift) == 0u &&
-                            (h.x & kMoved) != 0u;
-      if (!sentinel && usable(h, ts_vec, n_ts)) {
-        old_pos = p;
-        any_old = true;
-        break;
-      }
-    }
-  }
-
-  // ---- 4. overflow ring, newest first --------------------------------------
-  // scanned only when neither earlier region served the read: otherwise
-  // no output depends on it
-  const int on = ovf_next[slot];
-  int ovf_pos = ring_pos(on, 0, k_ovf);
-  bool any_ovf = false;
-  if (!cur_ok && !any_old) {
-    for (int a = 0; a < k_ovf; ++a) {
-      const int p = ring_pos(on, a, k_ovf);
-      if (usable(ovf_hdr[slot * k_ovf + p], ts_vec, n_ts)) {
-        ovf_pos = p;
-        any_ovf = true;
-        break;
-      }
-    }
-  }
-
-  const bool key_ok = !keyed || got;
   o_slot[q] = keyed ? (got ? val : -1) : fb;
-  o_found[q] = key_ok && (cur_ok || any_old || any_ovf);
-  o_src[q] = cur_ok ? 0 : (any_old ? 1 : 2);
-  o_pos[q] = cur_ok ? 0 : (any_old ? old_pos : ovf_pos);
+  o_found[q] = (!keyed || got) && loc.found;
+  o_src[q] = loc.src;
+  o_pos[q] = loc.pos;
 }
 
 }  // namespace

@@ -1,13 +1,17 @@
-"""TPC-C new-order over the NAM store (paper §7), single memory server.
+"""TPC-C over the NAM store (paper §7), single memory server.
 
-One round executes one new-order transaction per execution thread through
-the SI protocol (``core/si.py``). The schema keeps the reference's
-encodings: every column is an int32 word of an 8-word payload, the
-contended hot spot is the district's ``d_next_o_id``, and inserts go to
-thread-private extends (§5.3) as conflict-free installs.
+One round executes one transaction per execution thread through the SI
+protocol (``core/si.py``): new-order alone (:func:`run_neworder_rounds`) or
+the full five-transaction mix (:func:`run_mixed_rounds`), where each type
+runs as a sub-round over the threads that drew it. The schema keeps the
+reference's encodings: every column is an int32 word of an 8-word payload,
+the contended hot spots are the district's ``d_next_o_id`` and the
+warehouse row that payment writes, and inserts go to thread-private
+extends (§5.3) as conflict-free installs.
 
-Entry points (:func:`init_tpcc`, :func:`run_neworder_rounds`) run on the
-card unless ``device="cpu"`` is passed.
+Entry points (:func:`init_tpcc`, :func:`run_neworder_rounds`,
+:func:`run_mixed_rounds`) run on the card unless ``device="cpu"`` is
+passed.
 """
 from __future__ import annotations
 
@@ -17,9 +21,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch._u32 import gidx
-from repro_torch.core import hashtable as ht, header as hdr_ops, mvcc, \
-    rangeindex as ri, si, store
+from repro_torch._u32 import gidx, to_i32, u64
+from repro_torch.core import hashtable as ht, header as hdr_ops, locality, \
+    mvcc, netmodel, rangeindex as ri, si, store
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.si import TxnBatch
 from repro_torch.core.tsoracle import VectorOracle
@@ -38,6 +42,7 @@ O_COL = {"c_id": 0, "carrier": 1, "ol_cnt": 2, "entry_d": 3, "o_id": 4,
          "d_key": 5}
 OL_COL = {"i_id": 0, "supply_w": 1, "quantity": 2, "amount": 3,
           "delivery_d": 4}
+H_COL = {"amount": 0, "c_id": 1, "w_id": 2}
 
 MAX_O_PER_DISTRICT = 1 << 14  # o_id key-space per district for index keys
 
@@ -510,12 +515,17 @@ def neworder_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
 # ----------------------------------------------------- retry-queue driver ----
 def _merge_retries(pending, fresh, retry_mask, T: int):
     """§7.4 retry queue: threads with a pending abort re-enter with their
-    original inputs; everyone else takes fresh work."""
+    original inputs; everyone else takes fresh work. Inputs are (nested)
+    NamedTuples of [T, ...] tensors."""
     if pending is None:
         return fresh
-    return type(fresh)(*(
-        torch.where(retry_mask.reshape((T,) + (1,) * (f.dim() - 1)), p, f)
-        for p, f in zip(pending, fresh)))
+
+    def merge(p, f):
+        if isinstance(f, torch.Tensor):
+            return torch.where(retry_mask.reshape((T,) + (1,) * (f.dim() - 1)),
+                               p, f)
+        return type(f)(*(merge(a, b) for a, b in zip(p, f)))
+    return merge(pending, fresh)
 
 
 class NewOrderRunStats(NamedTuple):
@@ -592,3 +602,613 @@ def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         contention_aborts=contention_aborts, ovf_reads=ovf_reads,
         ovf_peak=ovf_peak)
     return st, stats
+
+
+# --------------------------------------------------------------- helpers ----
+def _active_or_ones(T: int, active, device):
+    return torch.ones((T,), dtype=torch.bool, device=device) \
+        if active is None else active
+
+
+def _n_active(batch: TxnBatch, active):
+    """Transactions actually executed this (sub-)round — op accounting."""
+    if active is None:
+        return torch.as_tensor(batch.tid.shape[0])
+    return active.sum()
+
+
+def _safe_order_slot(lay: TPCCLayout, cfg: TPCCConfig) -> int:
+    """A valid order slot (thread 0's first extend) for lanes with none."""
+    return int(o_slot_ext(lay, cfg, 0, 0))
+
+
+def _lines(device):
+    return torch.arange(MAX_OL, dtype=torch.int32, device=device)
+
+
+# --------------------------------------------------------------- payment ----
+class PaymentResult(NamedTuple):
+    state: TPCCState
+    committed: torch.Tensor
+    ops: si.OpCounts
+    batch: TxnBatch
+    snapshot_miss: torch.Tensor  # bool [T]
+    vis: si.VisStats
+
+
+def _payment_batch(cfg: TPCCConfig, lay: TPCCLayout,
+                   inp: workload.PaymentInputs, active=None) -> TxnBatch:
+    """RS=WS=3: [warehouse, district, customer] — all written."""
+    T = inp.w_id.shape[0]
+    dev = inp.w_id.device
+    act = _active_or_ones(T, active, dev)
+    read_slots = torch.stack(
+        [w_slot(lay, inp.w_id), d_slot(lay, inp.w_id, inp.d_id),
+         c_slot(lay, cfg, inp.c_w_id, inp.d_id, inp.c_id)], dim=1)
+    mask = act[:, None].expand(T, 3)
+    return TxnBatch(
+        tid=torch.arange(T, dtype=torch.int32, device=dev),
+        read_slots=read_slots.to(torch.int32), read_mask=mask,
+        write_ref=torch.arange(3, dtype=torch.int32, device=dev)[None, :]
+        .expand(T, 3), write_mask=mask)
+
+
+def _payment_new_data(rd, inp: workload.PaymentInputs):
+    """The payment write-set: w/d ytd += amount, debit the customer."""
+    w, d, c = rd[:, 0, :].clone(), rd[:, 1, :].clone(), rd[:, 2, :].clone()
+    w[:, W_COL["ytd"]] += inp.amount
+    d[:, D_COL["ytd"]] += inp.amount
+    c[:, C_COL["balance"]] -= inp.amount
+    c[:, C_COL["ytd_payment"]] += inp.amount
+    c[:, C_COL["payment_cnt"]] += 1
+    return torch.stack([w, d, c], dim=1)
+
+
+def _payment_insert(cfg, lay, st: TPCCState, oracle, tbl, vec, committed,
+                    inp: workload.PaymentInputs):
+    """History insert into the thread-private extend. Returns the table
+    and the advanced history cursor."""
+    T = inp.w_id.shape[0]
+    dev = inp.w_id.device
+    tids = torch.arange(T, dtype=torch.int32, device=dev)
+    slot_ids = oracle.slot_of_thread(tids)
+    cts = vec[gidx(slot_ids, vec.shape[0])]
+    cur = st.hist_cursor
+    hslot = h_slot_ext(lay, cfg, tids, cur.clamp(0, cfg.orders_per_thread - 1))
+    can = committed & (cur < cfg.orders_per_thread)
+    hdata = torch.zeros((T, WIDTH), dtype=torch.int32, device=dev)
+    hdata[:, H_COL["amount"]] = inp.amount
+    hdata[:, H_COL["c_id"]] = inp.c_id
+    hdata[:, H_COL["w_id"]] = inp.w_id
+    tbl = _insert_install(tbl, hslot, slot_ids, cts, hdata, can)
+    return tbl, cur + can.to(torch.int32)
+
+
+def payment_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                  oracle: VectorOracle, inp: workload.PaymentInputs,
+                  rts_vec=None, active=None) -> PaymentResult:
+    """One batched round of payments through SI. The pool and the vector
+    of ``st`` are updated in place."""
+    batch = _payment_batch(cfg, lay, inp, active)
+    out = si.run_round(st.nam.table, oracle, st.nam.oracle_state, batch,
+                       lambda rh, rd, vec: _payment_new_data(rd, inp),
+                       rts_vec=rts_vec, active=active,
+                       fused_commit=cfg.fused_commit,
+                       batched_probe=cfg.batched_probe)
+    tbl, hist_cursor = _payment_insert(cfg, lay, st, oracle, out.table,
+                                       out.oracle_state.vec, out.committed,
+                                       inp)
+    nam = st.nam._replace(table=tbl, oracle_state=out.oracle_state)
+    return PaymentResult(
+        state=st._replace(nam=nam, hist_cursor=hist_cursor),
+        committed=out.committed, ops=out.ops, batch=batch,
+        snapshot_miss=out.snapshot_miss, vis=out.vis)
+
+
+# ----------------------------------------------------- read-only queries ----
+def _latest_order_of(idx: ri.RangeIndex, w_id, d_id):
+    """Latest order slot of (w, d) via the order index, with the
+    key-ownership check (an empty district must not surface another
+    district's latest order). Returns ``(oslot, found)``."""
+    d_key = u64(torch.atleast_1d(torch.as_tensor(w_id)) * DISTRICTS
+                + torch.as_tensor(d_id))
+    hi = to_i32((d_key + 1) * MAX_O_PER_DISTRICT)
+    k, oslot, idx_found = ri.lookup_max_below(idx, hi)
+    return oslot, idx_found & (u64(k) // MAX_O_PER_DISTRICT == d_key)
+
+
+def orderstatus(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                oracle: VectorOracle, w_id, d_id, c_id):
+    """Read-only: a customer and the latest order of its district
+    (``w_id``/``d_id``/``c_id`` int32 tensors on the state's device).
+    Returns ``(customer VisibleRead, order VisibleRead, found)``."""
+    vec = oracle.read(st.nam.oracle_state)
+    csl = c_slot(lay, cfg, w_id, d_id, c_id)
+    cust = mvcc.read_visible(st.nam.table, torch.atleast_1d(csl), vec)
+    oslot, found = _latest_order_of(st.order_index, w_id, d_id)
+    ordr = mvcc.read_visible(st.nam.table, torch.where(found, oslot, 0), vec)
+    return cust, ordr, found
+
+
+class ReadOnlyRoundResult(NamedTuple):
+    """One batched round of a read-only type: snapshot reads only, never
+    validated (§1.2), op-counted. ``result`` is per transaction: the
+    latest-order payload (orderstatus) or the low-stock count
+    (stocklevel)."""
+    result: torch.Tensor
+    found: torch.Tensor          # bool [T]
+    ops: si.OpCounts
+    read_slots: torch.Tensor
+    read_mask: torch.Tensor
+
+
+def _snapshot_read(st: TPCCState, vec, slots, keys=None, key_mask=None):
+    """Visible reads of ``slots`` [T, A] from the single pool: the
+    ``hashtable.lookup`` + ``mvcc.read_visible`` path. ``keys``/``key_mask``
+    resolve the marked reads through ``st.directory`` (§5.2); a directory
+    miss reads as not found. Returns ``(data [T, A, W], found [T, A],
+    from_current [T, A])``."""
+    T, A = slots.shape
+    flat = slots.reshape(-1)
+    key_ok = torch.ones(flat.shape, dtype=torch.bool, device=flat.device)
+    if keys is not None:
+        kvals, kfound = ht.lookup(st.directory, keys.reshape(-1),
+                                  max_probes=DIR_PROBES)
+        km = key_mask.reshape(-1)
+        flat = torch.where(km, torch.where(kfound, kvals, 0), flat)
+        key_ok = ~km | kfound
+    vr = mvcc.read_visible(st.nam.table, flat, vec)
+    W = st.nam.table.payload_width
+    return (vr.data.reshape(T, A, W), (vr.found & key_ok).reshape(T, A),
+            (vr.from_current & key_ok).reshape(T, A))
+
+
+def orderstatus_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                      oracle: VectorOracle, inp: workload.OrderStatusInputs,
+                      *, active=None) -> ReadOnlyRoundResult:
+    """Batched order-status: the customer (by key when
+    ``cfg.key_addressed``), the district's latest order and its order lines
+    (a dependent read: the line count comes out of the order payload)."""
+    T = inp.w_id.shape[0]
+    dev = inp.w_id.device
+    act = _active_or_ones(T, active, dev)
+    vec = oracle.read(st.nam.oracle_state)
+    csl = c_slot(lay, cfg, inp.w_id, inp.d_id, inp.c_id)
+    oslot, found = _latest_order_of(st.order_index, inp.w_id, inp.d_id)
+    found = found & act
+    slots = torch.stack([csl, torch.where(found, oslot, 0)], dim=1) \
+        .to(torch.int32)
+    mask = torch.stack([act, found], dim=1)
+    keys = kmask = None
+    n_probes = 0
+    if cfg.key_addressed:   # the order rides the range index, resolved
+        keys = torch.stack(
+            [customer_key(cfg, inp.w_id, inp.d_id, inp.c_id),
+             torch.zeros((T,), dtype=torch.int32, device=dev)], dim=1)
+        kmask = torch.stack(
+            [act, torch.zeros((T,), dtype=torch.bool, device=dev)], dim=1)
+        n_probes = (kmask & mask).sum()
+    data, _, fcur = _snapshot_read(st, vec, slots, keys, kmask)
+    order = data[:, 1, :]
+    olslot = ol_slots_of_order(
+        lay, cfg, torch.where(found, oslot, _safe_order_slot(lay, cfg))
+    )[:, None] + _lines(dev)
+    line_mask = (_lines(dev)[None, :] < order[:, O_COL["ol_cnt"], None]) \
+        & found[:, None]
+    _, _, ol_cur = _snapshot_read(st, vec, olslot)
+    slots = torch.cat([slots, olslot], dim=1)
+    mask = torch.cat([mask, line_mask], dim=1)
+    fcur = torch.cat([fcur, ol_cur], dim=1)
+    ops = si.count_readonly_ops(oracle, mask, fcur, act.sum(),
+                                st.nam.table.payload_width,
+                                n_index_probes=n_probes)
+    return ReadOnlyRoundResult(result=order, found=found, ops=ops,
+                               read_slots=slots, read_mask=mask)
+
+
+def _distinct_low(low, items, n_items: int):
+    """Per row, the number of distinct ``items`` where ``low`` holds — the
+    reference's scatter-max into ``[T, n_items]`` with ``mode="drop"``:
+    negative ids wrap once, ids still out of range go to a sink column."""
+    idx = torch.where(low, items, n_items).to(torch.int64)
+    idx = torch.where(idx < 0, idx + n_items, idx)
+    idx = torch.where((idx >= 0) & (idx < n_items), idx, n_items)
+    marked = torch.zeros(idx.shape[:-1] + (n_items + 1,), dtype=torch.int32,
+                         device=idx.device)
+    marked.scatter_(-1, idx, 1)
+    return marked[..., :n_items].sum(dim=-1).to(torch.int32)
+
+
+def stocklevel_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                     oracle: VectorOracle, inp: workload.StockLevelInputs,
+                     *, active=None, last_n: int = 8) -> ReadOnlyRoundResult:
+    """Batched stock-level: distinct items with low stock among the last
+    ``last_n`` orders' lines of (w, d) — a dependent-read chain (district →
+    index scan → order lines → stocks, by key when ``cfg.key_addressed``)."""
+    T = inp.w_id.shape[0]
+    dev = inp.w_id.device
+    act = _active_or_ones(T, active, dev)
+    vec = oracle.read(st.nam.oracle_state)
+    dsl = d_slot(lay, inp.w_id, inp.d_id).to(torch.int32)
+    ddata, _, dcur = _snapshot_read(st, vec, dsl[:, None])
+    next_o = ddata[:, 0, D_COL["next_o_id"]]
+    lo = order_key(inp.w_id, inp.d_id, (next_o - last_n).clamp(min=0))
+    hi = order_key(inp.w_id, inp.d_id, next_o)
+    k, oslots, _ = ri.range_scan(st.order_index, lo, hi, max_results=last_n)
+    valid = (k != ri.SENTINEL) & (oslots >= 0) & act[:, None]
+    oslots = torch.where(valid, oslots, _safe_order_slot(lay, cfg))
+    ol = (ol_slots_of_order(lay, cfg, oslots.reshape(-1))[:, None]
+          + _lines(dev)).reshape(T, last_n * MAX_OL)
+    ol_mask = valid.repeat_interleave(MAX_OL, dim=1)
+    ol_data, ol_found, ol_cur = _snapshot_read(st, vec, ol)
+    ol_ok = ol_found & ol_mask
+    items = ol_data[:, :, OL_COL["i_id"]]
+    w_bc = inp.w_id[:, None].expand_as(items)
+    safe_items = torch.where(ol_ok, items, 0)
+    ssl = s_slot(lay, cfg, w_bc, safe_items)
+    skeys = skmask = None
+    n_probes = 0
+    if cfg.key_addressed:   # stocks are fetched by key (§5.2)
+        skeys, skmask = stock_key(cfg, w_bc, safe_items), ol_ok
+        n_probes = (skmask & ol_ok).sum()
+    s_data, s_found, s_cur = _snapshot_read(st, vec, ssl, skeys, skmask)
+    low = ol_ok & s_found \
+        & (s_data[:, :, S_COL["quantity"]] < inp.threshold[:, None])
+    counts = _distinct_low(low, items, cfg.n_items)
+    mask = torch.cat([act[:, None], ol_mask, ol_ok], dim=1)
+    fcur = torch.cat([dcur, ol_cur, s_cur], dim=1)
+    slots = torch.cat([dsl[:, None], ol, ssl], dim=1)
+    ops = si.count_readonly_ops(oracle, mask, fcur, act.sum(),
+                                st.nam.table.payload_width,
+                                n_index_probes=n_probes)
+    return ReadOnlyRoundResult(result=counts, found=act, ops=ops,
+                               read_slots=slots, read_mask=mask)
+
+
+def stocklevel(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+               oracle: VectorOracle, w_id, d_id, threshold: int,
+               last_n: int = 20):
+    """Read-only: distinct items in the last ``last_n`` orders' lines of
+    one district (``w_id``/``d_id`` 0-d int32 tensors on the state's
+    device) whose stock is below ``threshold``; an int32 0-d tensor."""
+    vec = oracle.read(st.nam.oracle_state)
+    tbl = st.nam.table
+    dev = tbl.cur_hdr.device
+    dist = mvcc.read_visible(tbl, torch.atleast_1d(d_slot(lay, w_id, d_id)),
+                             vec)
+    next_o = dist.data[0, D_COL["next_o_id"]]
+    lo = order_key(w_id, d_id, (next_o - last_n).clamp(min=0))
+    hi = order_key(w_id, d_id, next_o)
+    k, oslots, _ = ri.range_scan(st.order_index, lo[None], hi[None],
+                                 max_results=last_n)
+    oslots = torch.where(oslots[0] >= 0, oslots[0],
+                         _safe_order_slot(lay, cfg))
+    ol = (ol_slots_of_order(lay, cfg, oslots)[:, None]
+          + _lines(dev)[None, :]).reshape(-1)
+    olr = mvcc.read_visible(tbl, ol, vec)
+    items = olr.data[:, OL_COL["i_id"]]
+    ol_ok = olr.found & (k[0] != ri.SENTINEL).repeat_interleave(MAX_OL)
+    stk = mvcc.read_visible(
+        tbl, s_slot(lay, cfg, torch.as_tensor(w_id).expand_as(items), items),
+        vec)
+    low = ol_ok & stk.found & (stk.data[:, S_COL["quantity"]] < threshold)
+    return _distinct_low(low, items, cfg.n_items)
+
+
+# -------------------------------------------------------------- delivery ----
+class DeliveryResult(NamedTuple):
+    state: TPCCState
+    committed: torch.Tensor      # bool [T] — outcome (vacuous if no order)
+    delivered: torch.Tensor      # bool [T] — committed AND an order found
+    ops: si.OpCounts
+    batch: TxnBatch
+    snapshot_miss: torch.Tensor  # bool [T]
+    vis: si.VisStats
+
+
+class DeliveryAux(NamedTuple):
+    carrier: torch.Tensor     # int32 [T]
+    line_mask: torch.Tensor   # bool [T, MAX_OL] — the order's real lines
+
+
+def _delivery_prepare(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                      vec, inp: workload.DeliveryInputs, active=None):
+    """Locate the oldest undelivered order of (w, d) with snapshot
+    pre-reads (district cursor → index → order payload), then build the SI
+    batch. Read-set (RS=3+15): [district, order, customer, order lines];
+    write-set (WS=3): district cursor, order carrier, customer balance.
+    Returns ``(batch, aux, found)``."""
+    T = inp.w_id.shape[0]
+    dev = inp.w_id.device
+    act = _active_or_ones(T, active, dev)
+    tbl = st.nam.table
+    dsl = d_slot(lay, inp.w_id, inp.d_id).to(torch.int32)
+    pre = mvcc.read_visible(tbl, dsl, vec)
+    deliv_o = pre.data[:, D_COL["next_deliv"]]
+    has_order = deliv_o < pre.data[:, D_COL["next_o_id"]]
+    okey = order_key(inp.w_id, inp.d_id, deliv_o)
+    k, oslot, idx_found = ri.lookup_max_below(st.order_index,
+                                              to_i32(u64(okey) + 1))
+    found = idx_found & (k == okey) & has_order & act
+    oslot = torch.where(found, oslot, _safe_order_slot(lay, cfg))
+    ordr = mvcc.read_visible(tbl, oslot, vec)
+    c_id = ordr.data[:, O_COL["c_id"]]
+    ol_cnt = ordr.data[:, O_COL["ol_cnt"]]
+    csl = c_slot(lay, cfg, inp.w_id, inp.d_id, torch.where(found, c_id, 0))
+    olslot = ol_slots_of_order(lay, cfg, oslot)[:, None] + _lines(dev)
+    line_mask = (_lines(dev)[None, :] < ol_cnt[:, None]) & found[:, None]
+    read_slots = torch.cat([dsl[:, None], oslot[:, None], csl[:, None],
+                            olslot], dim=1).to(torch.int32)
+    read_mask = torch.cat([act[:, None], found[:, None], found[:, None],
+                           line_mask], dim=1)
+    batch = TxnBatch(
+        tid=torch.arange(T, dtype=torch.int32, device=dev),
+        read_slots=read_slots, read_mask=read_mask,
+        write_ref=torch.arange(3, dtype=torch.int32, device=dev)[None, :]
+        .expand(T, 3), write_mask=found[:, None].expand(T, 3))
+    aux = DeliveryAux(carrier=inp.carrier.to(torch.int32).expand(T),
+                      line_mask=line_mask)
+    return batch, aux, found
+
+
+def _delivery_new_data(rd, aux: DeliveryAux):
+    """The delivery write-set: advance the district's delivery cursor,
+    stamp the carrier, credit the customer with the order's line amounts
+    (an int32 sum that wraps as the reference's does)."""
+    d, o, c = rd[:, 0, :].clone(), rd[:, 1, :].clone(), rd[:, 2, :].clone()
+    d[:, D_COL["next_deliv"]] += 1
+    o[:, O_COL["carrier"]] = aux.carrier
+    amount = to_i32(torch.where(aux.line_mask, rd[:, 3:, OL_COL["amount"]],
+                                0).sum(dim=1))
+    c[:, C_COL["balance"]] += amount
+    c[:, C_COL["delivery_cnt"]] += 1
+    return torch.stack([d, o, c], dim=1)
+
+
+def _delivery_preread_ops(ops: si.OpCounts, n_active, payload_width):
+    """Charge the two dependent snapshot pre-reads (district cursor, order
+    payload) that locate the order before the SI round."""
+    n_pre = 2 * n_active
+    return ops._replace(record_reads=ops.record_reads + n_pre,
+                        bytes_moved=ops.bytes_moved
+                        + n_pre * (8 + 4 * payload_width))
+
+
+def delivery_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                   oracle: VectorOracle, inp: workload.DeliveryInputs,
+                   rts_vec=None, active=None) -> DeliveryResult:
+    """Deliver the oldest undelivered order of (w, d): bump the district's
+    delivery cursor, stamp the order's carrier, credit the customer. The
+    pre-reads locate the order; the SI round re-reads and validates the
+    district version, so a race aborts. Updates ``st`` in place."""
+    vec = oracle.read(st.nam.oracle_state) if rts_vec is None else rts_vec
+    batch, aux, found = _delivery_prepare(cfg, lay, st, vec, inp, active)
+    out = si.run_round(st.nam.table, oracle, st.nam.oracle_state, batch,
+                       lambda rh, rd, v: _delivery_new_data(rd, aux),
+                       rts_vec=rts_vec, active=active,
+                       fused_commit=cfg.fused_commit,
+                       batched_probe=cfg.batched_probe)
+    nam = st.nam._replace(table=out.table, oracle_state=out.oracle_state)
+    ops = _delivery_preread_ops(out.ops, _n_active(batch, active),
+                                out.table.payload_width)
+    return DeliveryResult(
+        state=st._replace(nam=nam), committed=out.committed,
+        delivered=out.committed & found, ops=ops, batch=batch,
+        snapshot_miss=out.snapshot_miss, vis=out.vis)
+
+
+# ----------------------------------------------------- mixed-round driver ----
+class MixedRunStats(NamedTuple):
+    """Aggregates of a full five-transaction-mix run (§7: new-order is
+    reported out of the total). Per-type dicts are keyed by the names in
+    ``workload.TXN_TYPES``."""
+    attempts: dict              # executed txns (incl. retries)
+    commits: dict
+    retries: dict               # aborted txns re-entered later
+    ops: dict                   # si.OpCounts of Python floats
+    total_attempts: int
+    total_commits: int
+    abort_rate: float           # 1 - commits/attempts
+    local_fraction: float       # access-weighted machine-local share
+    delivered: int              # deliveries that found and delivered
+    snapshot_misses: dict = None
+    contention_aborts: dict = None
+    ovf_reads: dict = None      # reads served by the overflow region
+    gc_sweeps: int = 0
+    reclaim_traj: tuple = ()
+    ovf_peak: int = 0           # max overflow ring position observed
+
+
+def _check_layout_homes(cfg: TPCCConfig, lay: TPCCLayout, home_w,
+                        locality_mode):
+    """Under the warehouse-major layout a thread's insert extends live in
+    block ``tid % n_warehouses``; a locality measurement needs transactions
+    to execute there, so any other ``home_w`` is rejected."""
+    if locality_mode is None or lay.mode != "warehouse_major":
+        return
+    expected = locality.thread_homes(cfg.n_threads, cfg.n_warehouses)
+    if home_w is None or not bool(
+            (torch.as_tensor(home_w).to(torch.int32).cpu() == expected)
+            .all()):
+        raise ValueError(
+            "measuring locality under the warehouse_major layout requires "
+            "home_w = locality.thread_homes(n_threads, n_warehouses): "
+            "thread tid's insert extends live in block tid % n_warehouses")
+
+
+def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                     oracle: VectorOracle, draw: workload.MixedDraw,
+                     n_rounds: int, *, home_w=None,
+                     locality_mode: Optional[str] = None,
+                     move_versions: bool = True, stock_last_n: int = 8,
+                     device=None):
+    """Closed-loop driver for the full TPC-C mix on one memory server.
+
+    Each round ``draw(round)`` gives every thread its transaction type and
+    inputs; the round runs five type-homogeneous sub-rounds (new-order,
+    payment, delivery, then the read-only order-status and stock-level)
+    over the threads of each type, and skips a type no thread drew. The
+    §7.4 retry queue is per type: an aborted write transaction re-enters
+    the next round with its original type and inputs. Read-only types never
+    validate and never abort. ``locality_mode`` (``"aware"`` or
+    ``"oblivious"``) measures the machine-local access share; under the
+    warehouse-major layout it needs ``home_w`` = the thread homes the
+    draws were pinned to. ``device`` (default ``cuda``) must be where
+    ``st`` lives.
+
+    Returns ``(state, MixedRunStats)``; the pool is updated in place.
+    """
+    dev = resolve_device(device)
+    if st.nam.table.cur_hdr.device.type != dev.type:
+        raise ValueError(f"state lives on {st.nam.table.cur_hdr.device}, "
+                         f"not on {dev}")
+    T = cfg.n_threads
+    _check_layout_homes(cfg, lay, home_w, locality_mode)
+    placement = locality.Placement(n_servers=1,
+                                   shard_records=lay.catalog.total_records)
+    names = workload.TXN_TYPES
+    tids = torch.arange(T, dtype=torch.int32, device=dev)
+    # per sub-round counters stay on the device until the end of the run:
+    # [executed, committed, aborted, snapshot misses, overflow reads, ops…]
+    rows = {n: [] for n in names}
+    delivered, ovf_peaks, local = [], [], []
+    pending_type = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    pending = None
+
+    def acc(name, act, committed, ops, snap_miss=None, vis=None):
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        aborted = act & ~committed
+        rows[name].append(torch.stack([
+            act.sum(), committed.sum(), aborted.sum(),
+            zero if snap_miss is None else (snap_miss & act).sum(),
+            zero if vis is None else vis.n_ovf.to(torch.int64),
+            *(torch.as_tensor(f, device=dev).to(torch.int64)
+              for f in ops)]))
+        return aborted
+
+    def acc_local(w_id, d_id, slots, mask):
+        if locality_mode is not None:
+            srv = locality.route_transactions(
+                locality_mode, placement, d_slot(lay, w_id, d_id), tids, T)
+            local.append(torch.stack([
+                locality.local_fraction(placement, srv, slots, mask)
+                .to(torch.float64), mask.sum().to(torch.float64)]))
+
+    for r in range(n_rounds):
+        inp = _merge_retries(pending, draw(r), pending_type >= 0, T)
+        ttype = inp.txn_type
+        n_of = torch.bincount(ttype.to(torch.int64),
+                              minlength=len(names)).tolist()
+        aborted = torch.zeros((T,), dtype=torch.bool, device=dev)
+
+        # ---- write transactions, one type-homogeneous sub-round each ----
+        if n_of[0]:
+            act = ttype == 0
+            out = neworder_round(cfg, lay, st, oracle, inp.neworder,
+                                 round_no=r, active=act)
+            st = out.state
+            aborted |= acc("neworder", act, out.committed, out.ops,
+                           out.snapshot_miss, out.vis)
+            acc_local(inp.neworder.w_id, inp.neworder.d_id,
+                      out.batch.read_slots, out.batch.read_mask)
+        if n_of[1]:
+            act = ttype == 1
+            pay = payment_round(cfg, lay, st, oracle, inp.payment,
+                                active=act)
+            st = pay.state
+            aborted |= acc("payment", act, pay.committed, pay.ops,
+                           pay.snapshot_miss, pay.vis)
+            acc_local(inp.payment.w_id, inp.payment.d_id,
+                      pay.batch.read_slots, pay.batch.read_mask)
+        if n_of[3]:
+            act = ttype == 3
+            dl = delivery_round(cfg, lay, st, oracle, inp.delivery,
+                                active=act)
+            st = dl.state
+            aborted |= acc("delivery", act, dl.committed, dl.ops,
+                           dl.snapshot_miss, dl.vis)
+            delivered.append(dl.delivered.sum())
+            acc_local(inp.delivery.w_id, inp.delivery.d_id,
+                      dl.batch.read_slots, dl.batch.read_mask)
+
+        # ---- read-only transactions: snapshot reads, never abort ---------
+        if n_of[2]:
+            act = ttype == 2
+            ro = orderstatus_round(cfg, lay, st, oracle, inp.orderstatus,
+                                   active=act)
+            acc("orderstatus", act, act, ro.ops)
+            acc_local(inp.orderstatus.w_id, inp.orderstatus.d_id,
+                      ro.read_slots, ro.read_mask)
+        if n_of[4]:
+            act = ttype == 4
+            sl = stocklevel_round(cfg, lay, st, oracle, inp.stocklevel,
+                                  active=act, last_n=stock_last_n)
+            acc("stocklevel", act, act, sl.ops)
+            acc_local(inp.stocklevel.w_id, inp.stocklevel.d_id,
+                      sl.read_slots, sl.read_mask)
+
+        pending_type = torch.where(aborted, ttype, -1)
+        pending = inp
+        if move_versions:
+            mvcc.version_mover(st.nam.table)
+        ovf_peaks.append(st.nam.table.ovf_next.max())
+
+    attempts, commits, retries = {}, {}, {}
+    snapshot_misses, contention_aborts, ovf_reads, ops = {}, {}, {}, {}
+    left = torch.bincount((pending_type + 1).to(torch.int64),
+                          minlength=len(names) + 1).tolist()[1:]
+    for i, n in enumerate(names):
+        tot = torch.stack(rows[n]).sum(dim=0).tolist() if rows[n] \
+            else [0] * (5 + len(si.OpCounts._fields))
+        attempts[n], commits[n] = tot[0], tot[1]
+        # the last round's aborts never re-entered a later round
+        retries[n] = tot[2] - left[i]
+        snapshot_misses[n] = tot[3]
+        contention_aborts[n] = tot[2] - tot[3]
+        ovf_reads[n] = tot[4]
+        ops[n] = si.OpCounts(*(float(f) for f in tot[5:]))
+    lf_local = lf_total = 0.0
+    for frac, n_acc in (torch.stack(local).tolist() if local else ()):
+        lf_local += frac * n_acc
+        lf_total += n_acc
+    total_attempts = sum(attempts.values())
+    total_commits = sum(commits.values())
+    stats = MixedRunStats(
+        attempts=attempts, commits=commits, retries=retries, ops=ops,
+        total_attempts=total_attempts, total_commits=total_commits,
+        abort_rate=1.0 - total_commits / max(1, total_attempts),
+        local_fraction=lf_local / lf_total if lf_total else float("nan"),
+        delivered=int(torch.stack(delivered).sum()) if delivered else 0,
+        snapshot_misses=snapshot_misses,
+        contention_aborts=contention_aborts, ovf_reads=ovf_reads,
+        ovf_peak=max([0] + torch.stack(ovf_peaks).tolist())
+        if ovf_peaks else 0)
+    return st, stats
+
+
+# extra conflict-free extend installs per commit, invisible to OpCounts:
+# new-order inserts order + new-order + ~10 order lines + index entry;
+# payment appends one history record
+EXTRA_INSTALLS = {"neworder": 13.0, "payment": 1.0}
+READ_ONLY_TYPES = ("orderstatus", "stocklevel")
+
+
+def mixed_profiles(stats: MixedRunStats):
+    """Per-type cost-model profiles and the attempt-share-weighted mix
+    profile that feeds ``netmodel.namdb_throughput``."""
+    per_type = {
+        n: netmodel.profile_from_ops(
+            stats.ops[n], stats.attempts[n],
+            extra_installs=EXTRA_INSTALLS.get(n, 0.0)
+            * stats.commits[n] / max(1, stats.attempts[n]),
+            read_only=n in READ_ONLY_TYPES)
+        for n in workload.TXN_TYPES}
+    total = max(1, stats.total_attempts)
+    shares = {n: stats.attempts[n] / total for n in workload.TXN_TYPES}
+    return per_type, netmodel.combine_profiles(per_type, shares)
+
+
+def neworder_share(stats: MixedRunStats) -> float:
+    """New-order commits as a fraction of all commits (the paper's 6.5 M
+    of 14.5 M split)."""
+    return stats.commits["neworder"] / max(1, stats.total_commits)

@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
-interface. It is compiled at first use with
+interface; device code shared between sources lives in headers there
+(``*.cuh``). A kernel is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 into the repository's ``build/`` directory and loaded with ``ctypes``.
-The file name carries a hash of the source and the flags, so an edited
-source builds anew. A missing ``nvcc`` or a failed build raises; nothing
+The file name carries a hash of the source, the shared headers and the
+flags, so an edited source or header builds anew. A missing ``nvcc`` or a failed build raises; nothing
 falls back.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("batched_probe", "fused_commit")
+KERNELS = ("batched_probe", "fused_commit", "hash_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +50,8 @@ def find_nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return src, BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

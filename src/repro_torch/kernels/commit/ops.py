@@ -37,8 +37,12 @@ def _lib():
     return fn
 
 
-def _launch(fn, args, held, out, dev):
-    """Launch on the current stream; ``held`` keeps the buffers alive."""
+def _launch(fn, args, n, held, out, dev):
+    """Launch on the current stream; ``held`` keeps the buffers alive.
+    With no requests and no transactions there is no kernel to launch, and
+    nothing is counted."""
+    if n == 0:
+        return out
     err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused_commit kernel launch failed: CUDA error "
@@ -87,7 +91,7 @@ def prepare(table: VersionedTable, vec, req_slots, req_expected, req_prio,
     # its address could be freed and handed to another tensor meanwhile
     held = (table, vec, req_slots, req_expected, req_prio, req_active,
             txn_of_req, new_hdr, txn_ok, txn_slot, cts, ext_fails, scratch)
-    return functools.partial(_launch, fn, args, held, out, dev)
+    return functools.partial(_launch, fn, args, max(Q, T), held, out, dev)
 
 
 def fused_commit(table: VersionedTable, vec, req_slots, req_expected,

@@ -1,11 +1,12 @@
-"""Wrapper of the CUDA batched-probe kernel (``csrc/batched_probe.cu``).
+"""Wrappers of the CUDA probe kernels (``csrc/batched_probe.cu``,
+``csrc/hash_probe.cu``).
 
-For tensors on the CPU :func:`batched_probe` runs the plain version
-(:mod:`.ref`); for CUDA tensors it launches the kernel or raises — it
-never falls back. Every kernel launch adds one to
-``batched_probe.launches``. :func:`prepare` validates the inputs and
-allocates the outputs once and returns the launch, so a caller can repeat
-it on the same buffers.
+For tensors on the CPU :func:`batched_probe` and :func:`hash_probe` run
+their plain versions (:mod:`.ref`); for CUDA tensors they launch the kernel
+or raise — they never fall back. Every kernel launch adds one to the
+wrapper's ``launches``. :func:`prepare` and :func:`prepare_hash_probe`
+validate the inputs and allocate the outputs once and return the launch,
+so a caller can repeat it on the same buffers.
 """
 from __future__ import annotations
 
@@ -16,79 +17,104 @@ import torch
 
 from repro_torch.core.mvcc import VersionedTable
 from repro_torch.kernels import _build
-from repro_torch.kernels.hash_probe.ref import batched_probe_ref
+from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
+    hash_probe_ref
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P, _P, _P, _P, _P,
-             ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P,
-             _P, ctypes.c_int64, _P, _P, _P, _P, _P]
+_I, _I64 = ctypes.c_int, ctypes.c_int64
+# the header planes and the timestamp vector, as both launches take them
+_TABLE_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _I]
+_ARGTYPES = {
+    "batched_probe": [_P, _P, _I64, _I, *_TABLE_ARGTYPES, _P, _P, _P, _I64,
+                      _P, _P, _P, _P, _P],
+    "hash_probe": [_P, _P, _I64, _I, *_TABLE_ARGTYPES, _P, _I64, _P, _P, _P,
+                   _P, _P],
+}
 
 
-def _lib():
-    fn = _build.load("batched_probe").batched_probe_launch
+def _lib(name):
+    fn = getattr(_build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
     return fn
 
 
 def _check(name, t, dtype, device):
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"batched_probe: {name} must be a contiguous {dtype} "
+        raise ValueError(f"probe: {name} must be a contiguous {dtype} "
                          f"tensor on {device}, got {t.dtype} on {t.device}")
 
 
-def _launch(fn, args, held, out, dev):
-    """Launch on the current stream; ``held`` keeps the buffers alive."""
+def _check_table(table: VersionedTable, ts_vec):
+    """The device of the table; raises unless every plane the kernels read
+    is a contiguous int32 CUDA tensor there."""
+    dev = table.cur_hdr.device
+    if dev.type != "cuda":
+        raise ValueError(f"probe: no kernel for device {dev}")
+    for name, t in (("cur_hdr", table.cur_hdr), ("old_hdr", table.old_hdr),
+                    ("next_write", table.next_write),
+                    ("ovf_hdr", table.ovf_hdr), ("ovf_next", table.ovf_next),
+                    ("ts_vec", ts_vec)):
+        _check(name, t, torch.int32, dev)
+    return dev
+
+
+def _table_args(table: VersionedTable, ts_vec):
+    return (table.cur_hdr.data_ptr(), table.old_hdr.data_ptr(),
+            table.next_write.data_ptr(), table.ovf_hdr.data_ptr(),
+            table.ovf_next.data_ptr(), ts_vec.data_ptr(), ts_vec.shape[0],
+            table.cur_hdr.shape[0], table.n_old, table.ovf_hdr.shape[1])
+
+
+def _outputs(Q, dev):
+    """``(slot, found, src, pos)`` buffers of ``Q`` lanes."""
+    return (torch.empty((Q,), dtype=torch.int32, device=dev),
+            torch.empty((Q,), dtype=torch.bool, device=dev),
+            torch.empty((Q,), dtype=torch.int32, device=dev),
+            torch.empty((Q,), dtype=torch.int32, device=dev))
+
+
+def _launch(counter, fn, args, n_q, held, out, dev):
+    """Launch on the current stream; ``held`` keeps the buffers alive.
+    With no lanes there is no kernel to launch, and nothing is counted."""
+    if n_q == 0:
+        return out
     err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"batched_probe kernel launch failed: CUDA error "
-                           f"{err}")
-    _COUNTER.launches += 1
+        raise RuntimeError(f"{counter.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    counter.launches += 1
     return out
 
 
 def prepare(dir_keys, dir_vals, table: VersionedTable, ts_vec,
             fallback_slots, keys, key_mask, *, max_probes: int = 16):
-    """Validate CUDA inputs and allocate the outputs; returns a function
-    that launches the kernel into them and returns ``(slot, found, src,
-    pos)``."""
-    dev = table.cur_hdr.device
-    if dev.type != "cuda":
-        raise ValueError(f"batched_probe: no kernel for device {dev}")
-    i32 = torch.int32
-    for name, t in (("cur_hdr", table.cur_hdr), ("old_hdr", table.old_hdr),
-                    ("next_write", table.next_write),
-                    ("ovf_hdr", table.ovf_hdr), ("ovf_next", table.ovf_next),
-                    ("ts_vec", ts_vec), ("fallback_slots", fallback_slots)):
-        _check(name, t, i32, dev)
+    """Validate CUDA inputs of :func:`batched_probe` and allocate the
+    outputs; returns a function that launches the kernel into them and
+    returns ``(slot, found, src, pos)``."""
+    dev = _check_table(table, ts_vec)
+    _check("fallback_slots", fallback_slots, torch.int32, dev)
     if dir_keys is None:
         n_buckets = 0
         dir_keys = dir_vals = keys = key_mask = fallback_slots  # never read
     else:
         n_buckets = dir_keys.shape[0]
-        _check("dir_keys", dir_keys, i32, dev)
-        _check("dir_vals", dir_vals, i32, dev)
-        _check("keys", keys, i32, dev)
+        _check("dir_keys", dir_keys, torch.int32, dev)
+        _check("dir_vals", dir_vals, torch.int32, dev)
+        _check("keys", keys, torch.int32, dev)
         _check("key_mask", key_mask, torch.bool, dev)
     Q = fallback_slots.shape[0]
-    out = (torch.empty((Q,), dtype=i32, device=dev),
-           torch.empty((Q,), dtype=torch.bool, device=dev),
-           torch.empty((Q,), dtype=i32, device=dev),
-           torch.empty((Q,), dtype=i32, device=dev))
-    fn = _lib()
+    out = _outputs(Q, dev)
     args = (dir_keys.data_ptr(), dir_vals.data_ptr(), n_buckets, max_probes,
-            table.cur_hdr.data_ptr(), table.old_hdr.data_ptr(),
-            table.next_write.data_ptr(), table.ovf_hdr.data_ptr(),
-            table.ovf_next.data_ptr(), ts_vec.data_ptr(), ts_vec.shape[0],
-            table.cur_hdr.shape[0], table.n_old, table.ovf_hdr.shape[1],
-            fallback_slots.data_ptr(), keys.data_ptr(), key_mask.data_ptr(),
-            Q, *(o.data_ptr() for o in out))
-
+            *_table_args(table, ts_vec), fallback_slots.data_ptr(),
+            keys.data_ptr(), key_mask.data_ptr(), Q,
+            *(o.data_ptr() for o in out))
     # the launch holds every tensor it points at: a buffer known only by
     # its address could be freed and handed to another tensor meanwhile
     held = (dir_keys, dir_vals, table, ts_vec, fallback_slots, keys,
             key_mask)
-    return functools.partial(_launch, fn, args, held, out, dev)
+    return functools.partial(_launch, _COUNTERS["batched_probe"],
+                             _lib("batched_probe"), args, Q, held, out, dev)
 
 
 def batched_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec,
@@ -106,5 +132,44 @@ def batched_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec,
                    key_mask, max_probes=max_probes)()
 
 
+def prepare_hash_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec,
+                       queries, *, max_probes: int = 16):
+    """Validate CUDA inputs of :func:`hash_probe` and allocate the outputs;
+    returns a function that launches the kernel into them and returns
+    ``(slot, found, src, pos)``."""
+    dev = _check_table(table, ts_vec)
+    for name, t in (("dir_keys", dir_keys), ("dir_vals", dir_vals),
+                    ("queries", queries)):
+        _check(name, t, torch.int32, dev)
+    if dir_keys.shape[0] == 0:
+        raise ValueError("hash_probe: the directory needs at least one "
+                         "bucket")
+    Q = queries.shape[0]
+    out = _outputs(Q, dev)
+    args = (dir_keys.data_ptr(), dir_vals.data_ptr(), dir_keys.shape[0],
+            max_probes, *_table_args(table, ts_vec), queries.data_ptr(), Q,
+            *(o.data_ptr() for o in out))
+    held = (dir_keys, dir_vals, table, ts_vec, queries)
+    return functools.partial(_launch, _COUNTERS["hash_probe"],
+                             _lib("hash_probe"), args, Q, held, out, dev)
+
+
+def hash_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec, queries,
+               *, max_probes: int = 16):
+    """Probe the directory for every query key (uint32 words in int32
+    storage) and locate the newest usable version of its record. Returns
+    ``(slot, found, src, pos)`` as :func:`.ref.hash_probe_ref` does: a
+    missing or invalidated key gives slot -1 and src = pos = 0. Gather the
+    payload with ``mvcc.gather_version``; reads only."""
+    if table.cur_hdr.device.type == "cpu":
+        return hash_probe_ref(dir_keys, dir_vals, table, ts_vec, queries,
+                              max_probes=max_probes)
+    return prepare_hash_probe(dir_keys, dir_vals, table, ts_vec, queries,
+                              max_probes=max_probes)()
+
+
 batched_probe.launches = 0
-_COUNTER = batched_probe   # the count lives on the public wrapper
+hash_probe.launches = 0
+# the counts live on the original wrapper objects, so they stay reachable
+# when a caller rebinds the module's names
+_COUNTERS = {"batched_probe": batched_probe, "hash_probe": hash_probe}

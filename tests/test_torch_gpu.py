@@ -18,7 +18,8 @@ from repro_torch.db import tpcc, workload
 from repro_torch.kernels.commit import ops as commit_ops
 from repro_torch.kernels.commit.ref import fused_commit_ref
 from repro_torch.kernels.hash_probe import ops as probe_ops
-from repro_torch.kernels.hash_probe.ref import batched_probe_ref
+from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
+    hash_probe_ref
 
 
 def _t(a, device="cpu"):
@@ -129,6 +130,36 @@ def port_probe(fn, case, device="cpu", max_probes=32):
 PROBE_OUT = ("slot", "found", "src", "pos")
 
 
+def port_hash_probe(fn, case, device="cpu", max_probes=32):
+    """``hash_probe`` over a :func:`probe_case`: every lane's key is a
+    query (the lanes' slot addressing does not apply)."""
+    dk, dv, tbl, ts, fb, lk, km = case
+    return fn(_t(dk, device), _t(dv, device), port_table(tbl, device),
+              _t(ts, device), _t(lk, device), max_probes=max_probes)
+
+
+def check_hash_probe_gather(case, out, device="cpu"):
+    """``mvcc.gather_version`` over the locator equals ``lookup`` +
+    ``read_visible`` on every found lane, and a miss is slot -1 with
+    src = pos = 0."""
+    dk, dv, tbl, ts, fb, lk, km = case
+    table = port_table(tbl, device)
+    slot, found, src, pos = out
+    hdr, data = tmvcc.gather_version(
+        table, torch.where(found, slot, 0),
+        tmvcc.VersionLoc(found=found, src=src, pos=pos))
+    vals, kfound = tht.lookup(tht.HashTable(_t(dk, device), _t(dv, device)),
+                              _t(lk, device), max_probes=32)
+    vr = tmvcc.read_visible(table, torch.where(kfound, vals, 0),
+                            _t(ts, device))
+    assert torch.equal(found, kfound & vr.found)
+    assert torch.equal(hdr[found], vr.hdr[found])
+    assert torch.equal(data[found], vr.data[found])
+    miss = ~kfound
+    assert (slot[miss] == -1).all() and (src[miss] == 0).all() \
+        and (pos[miss] == 0).all()
+
+
 # ---------------------------------------------------------- commit cases ----
 def commit_case(wrap_seed=0):
     """The whole outcome lattice, by construction (T=8 transactions of
@@ -228,6 +259,20 @@ def test_batched_probe_kernel_matches_plain_on_card(seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hash_probe_kernel_matches_plain_on_card(seed):
+    dev = _cuda()
+    case = probe_case(seed)
+    n = probe_ops.hash_probe.launches
+    ker = port_hash_probe(probe_ops.hash_probe, case, dev)
+    torch.cuda.synchronize()
+    assert probe_ops.hash_probe.launches == n + 1
+    _assert_leaves_equal(port_hash_probe(hash_probe_ref, case), ker,
+                         PROBE_OUT)
+    check_hash_probe_gather(case, ker, dev)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("wrap_seed", [0, 1, 2])
 def test_fused_commit_kernel_matches_plain_on_card(wrap_seed):
     dev = _cuda()
@@ -249,6 +294,24 @@ def test_wrappers_raise_on_bad_cuda_inputs():
     bad[1] = bad[1].to(torch.int64)          # req_slots of the wrong dtype
     with pytest.raises(ValueError):
         commit_ops.fused_commit(port_table(tbl, dev), *bad)
+
+
+@pytest.mark.gpu
+def test_empty_calls_launch_nothing_and_count_nothing():
+    """A call with no lanes launches no kernel, so no count moves."""
+    dev = _cuda()
+    dk, dv, tbl, ts, fb, lk, km = probe_case(0)
+    none = np.zeros(0, np.int32)
+    n = (probe_ops.batched_probe.launches, probe_ops.hash_probe.launches)
+    out = port_hash_probe(probe_ops.hash_probe,
+                          (dk, dv, tbl, ts, fb, none, km), dev)
+    assert all(t.shape == (0,) for t in out)
+    out = port_probe(probe_ops.batched_probe,
+                     (dk, dv, tbl, ts, none, none, km[:0]), dev)
+    assert all(t.shape == (0,) for t in out)
+    torch.cuda.synchronize()
+    assert (probe_ops.batched_probe.launches,
+            probe_ops.hash_probe.launches) == n
 
 
 @pytest.mark.gpu
@@ -283,6 +346,59 @@ def test_neworder_kernels_match_plain_path_on_card(layout):
     assert commit_ops.fused_commit.launches - n[1] == 4
     assert stats.commits == cpu_stats.commits > 0
     assert torch.equal(stats.committed.cpu(), cpu_stats.committed)
+    _assert_leaves_equal(_leaves(cpu_st), _leaves(st),
+                         [str(i) for i in range(len(_leaves(st)))])
+
+
+@pytest.mark.gpu
+def test_mixed_rounds_kernels_match_plain_path_on_card():
+    """Four key-addressed rounds of the full mix through both kernels on
+    the card equal the plain path on the CPU, state leaf for state leaf;
+    payment and delivery launch both kernels too."""
+    dev = _cuda()
+    cfg = tpcc.TPCCConfig(n_warehouses=2, customers_per_district=8,
+                          n_items=64, n_threads=16, orders_per_thread=16,
+                          dist_degree=50.0, key_addressed=True,
+                          fused_commit=True, batched_probe=True)
+    plain = tpcc.TPCCConfig(**{**cfg.__dict__, "fused_commit": False,
+                               "batched_probe": False})
+    oracle = VectorOracle(cfg.n_threads)
+    lay, st = tpcc.init_tpcc(cfg, oracle, device=dev)
+    cpu_st = _to(st, "cpu")
+    draw = workload.mixed_stream(
+        cfg, torch.Generator().manual_seed(3),
+        mix={"neworder": 0.3, "payment": 0.3, "orderstatus": 0.1,
+             "delivery": 0.2, "stocklevel": 0.1})
+    draws = [draw(r) for r in range(4)]
+    counts = {}
+    orig = tpcc.payment_round, tpcc.delivery_round
+
+    def counted(name, fn):
+        def run(*a, **k):
+            n = (probe_ops.batched_probe.launches,
+                 commit_ops.fused_commit.launches)
+            out = fn(*a, **k)
+            counts.setdefault(name, set()).add(
+                (probe_ops.batched_probe.launches - n[0],
+                 commit_ops.fused_commit.launches - n[1]))
+            return out
+        return run
+
+    tpcc.payment_round = counted("payment", orig[0])
+    tpcc.delivery_round = counted("delivery", orig[1])
+    try:
+        st, stats = tpcc.run_mixed_rounds(
+            cfg, lay, st, oracle, lambda r: _to(draws[r], dev), 4,
+            device=dev)
+    finally:
+        tpcc.payment_round, tpcc.delivery_round = orig
+    cpu_st, cpu_stats = tpcc.run_mixed_rounds(
+        plain, lay, cpu_st, oracle, lambda r: draws[r], 4, device="cpu")
+    assert counts == {"payment": {(1, 1)}, "delivery": {(1, 1)}}
+    for f in cpu_stats._fields:
+        if f != "local_fraction":
+            assert getattr(stats, f) == getattr(cpu_stats, f), f
+    assert stats.total_commits > 0
     _assert_leaves_equal(_leaves(cpu_st), _leaves(st),
                          [str(i) for i in range(len(_leaves(st)))])
 

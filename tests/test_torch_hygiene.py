@@ -44,13 +44,16 @@ def test_entry_points_refuse_to_run_on_the_cpu_silently(monkeypatch):
     lay, st = tpcc.init_tpcc(cfg, oracle, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         tpcc.run_neworder_rounds(cfg, lay, st, oracle, lambda r: None, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpcc.run_mixed_rounds(cfg, lay, st, oracle, lambda r: None, 1)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(_build, "_loaded", {})
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("batched_probe")
+    for name in _build.KERNELS:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(name)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()

@@ -22,10 +22,12 @@ from repro_torch._u32 import np_to_i32
 from repro_torch.kernels.commit import ops as commit_ops
 from repro_torch.kernels.commit.ref import fused_commit_ref
 from repro_torch.kernels.hash_probe import ops as probe_ops
-from repro_torch.kernels.hash_probe.ref import batched_probe_ref
+from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
+    hash_probe_ref
 
-from test_torch_gpu import (COMMIT_OUT, PROBE_OUT, check_lattice,
-                            commit_case, flat_commit, port_commit, port_probe,
+from test_torch_gpu import (COMMIT_OUT, PROBE_OUT, check_hash_probe_gather,
+                            check_lattice, commit_case, flat_commit,
+                            port_commit, port_hash_probe, port_probe,
                             port_table, probe_case, _t)
 
 
@@ -82,6 +84,42 @@ def test_batched_probe_matches_pallas_interpret():
                          PROBE_OUT)
 
 
+@pytest.mark.parametrize("seed,max_probes", [(0, 32), (1, 32), (2, 3)])
+@pytest.mark.parametrize("snapshot", ["as_drawn", "zero"])
+def test_hash_probe_ref_matches_reference(seed, max_probes, snapshot):
+    """Port plain version == reference plain version: a missing or
+    invalidated key is slot -1 with src = pos = 0, found keys resolve in
+    every region, and under the zero snapshot hit keys find no version."""
+    case = probe_case(seed)
+    if snapshot == "zero":
+        case = case[:3] + (np.zeros_like(case[3]),) + case[4:]
+    dk, dv, tbl, ts, fb, lk, km = case
+    ref = jprobe_ref.hash_probe_ref(
+        jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
+        jnp.asarray(lk), max_probes=max_probes)
+    port = port_hash_probe(hash_probe_ref, case, max_probes=max_probes)
+    _assert_leaves_equal(ref, port, PROBE_OUT)
+    slot, found, src = (x.numpy() for x in port[:3])
+    assert (slot == -1).any() and found.any()
+    if snapshot == "zero":
+        assert (~found & (slot >= 0)).any()
+    elif max_probes == 32:
+        assert {0, 1, 2} <= set(src[found].tolist())
+    if max_probes == 32:
+        check_hash_probe_gather(case, port)
+
+
+def test_hash_probe_matches_pallas_interpret():
+    """One case through the reference's Pallas kernel in interpret mode."""
+    case = probe_case(4)
+    dk, dv, tbl, ts, fb, lk, km = case
+    ker = jprobe_ops.hash_probe(
+        jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
+        jnp.asarray(lk), max_probes=32, bq=32, interpret=True)
+    _assert_leaves_equal(ker, port_hash_probe(probe_ops.hash_probe, case),
+                         PROBE_OUT)
+
+
 # ---------------------------------------------------------- commit -------
 @pytest.mark.parametrize("wrap_seed", [0, 1])
 def test_fused_commit_ref_matches_reference(wrap_seed):
@@ -106,9 +144,11 @@ def test_fused_commit_matches_pallas_interpret():
 
 def test_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors the wrappers run the plain version: no launch."""
-    before = (probe_ops.batched_probe.launches,
-              commit_ops.fused_commit.launches)
+    counts = lambda: (probe_ops.batched_probe.launches,
+                      probe_ops.hash_probe.launches,
+                      commit_ops.fused_commit.launches)
+    before = counts()
     port_probe(probe_ops.batched_probe, probe_case(5))
+    port_hash_probe(probe_ops.hash_probe, probe_case(5))
     port_commit(commit_ops.fused_commit, commit_case(3))
-    assert (probe_ops.batched_probe.launches,
-            commit_ops.fused_commit.launches) == before
+    assert counts() == before
