@@ -3,11 +3,11 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py [--rounds 32] [--mix-rounds 32] [--probe-rounds 8]
-                          [--seed 0] [--profile-rounds 4]
+                          [--seed 0] [--profile-rounds 4] [--lm-reps 20]
 
 Phases, each fatal on failure:
 
-1. build the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+1. build the seven CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    each, started together);
 2. load TPC-C at one NAM-DB memory server's scale (50 warehouses, 100,000
    items, 3,000 customers per district, 60 threads) on the card;
@@ -40,7 +40,22 @@ Phases, each fatal on failure:
    some from the overflow ring;
 7. time the rounds, each kernel (CUDA events) beside its bound and its
    plain version, and profile a few rounds of each path for the device
-   breakdown.
+   breakdown;
+8. the LM kernels on their entry points: ``flash_attention``,
+   ``paged_attention``, ``moe_gmm`` and ``mamba_scan`` (``ops``) at the full
+   widths of gemma2-27b (local and global attention layers, decode over a
+   paged cache of 32 sequences of up to 32,768 tokens), mixtral-8x22b (an
+   attention layer at S = 8,192, the experts at 4,096 tokens) and
+   jamba-v0.1 (a mamba layer), and at the four points of
+   ``benchmarks/bench_kernels.py``, in bfloat16: each call once with the
+   launch counts reset, then each output held against the plain version
+   (atol = rtol = 2e-2, mamba 5e-2) and against the plain version on
+   float32 copies of its inputs (2^-7 of each value plus 1e-3 of the
+   output's RMS, ``kernels/tolerance.py``), timed beside its bound, its
+   plain version and, for the mixtral attention layer, SDPA. Two more
+   calls of the gemma2 local layer, with queries scaled by 2 and by 16 so
+   that the logits reach the softcap's range, are held to the float32
+   plain version alone.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -70,11 +85,26 @@ from repro_torch.kernels.commit import ops as commit_ops  # noqa: E402
 from repro_torch.kernels.commit import ref as commit_ref  # noqa: E402
 from repro_torch.kernels.hash_probe import ops as probe_ops  # noqa: E402
 from repro_torch.kernels.hash_probe import ref as probe_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as mamba_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ref as mamba_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm import ref as moe_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as paged_ref  # noqa: E402
+from repro_torch.kernels import tolerance  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the FP32 rate
 # outside the tensor cores, taken as the rate of 32-bit integer work
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
+F32_FLOPS = 67e12            # FP32 outside the tensor cores
+BF16_FLOPS = 989.4e12        # dense BF16 on the tensor cores
+# exponentials on the SFU: 16 a clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), 132 SMs at
+# the 1.98 GHz boost clock
+EXP_PER_S = 132 * 16 * 1.98e9
 OPS_PER_WORD = 10   # integer operations counted per 32-bit word loaded
 
 SLICE = tpcc.TPCCConfig(
@@ -317,16 +347,23 @@ def timed_run(driver, cfg, lay, st, oracle, stream, n_rounds):
     return st, stats, [b - a for a, b in zip(stamps, stamps[1:])]
 
 
+# each kernel's wrapper, the entry point that counts its launches
+WRAPPERS = {"batched_probe": (probe_ops, "batched_probe"),
+            "fused_commit": (commit_ops, "fused_commit"),
+            "hash_probe": (probe_ops, "hash_probe"),
+            "flash_attention": (flash_ops, "flash_attention"),
+            "paged_attention": (paged_ops, "paged_attention"),
+            "moe_gmm": (moe_ops, "moe_gmm"),
+            "mamba_scan": (mamba_ops, "mamba_scan")}
+
+
 def launch_counts():
-    return {"batched_probe": probe_ops.batched_probe.launches,
-            "fused_commit": commit_ops.fused_commit.launches,
-            "hash_probe": probe_ops.hash_probe.launches}
+    return {n: getattr(m, f).launches for n, (m, f) in WRAPPERS.items()}
 
 
 def reset_launch_counts():
-    probe_ops.batched_probe.launches = 0
-    probe_ops.hash_probe.launches = 0
-    commit_ops.fused_commit.launches = 0
+    for m, f in WRAPPERS.values():
+        getattr(m, f).launches = 0
 
 
 # the outcome of each sub-round of the mix, as the driver sees it
@@ -526,6 +563,14 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/commit/kernel.py:126"),
     "hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                    "src/repro/kernels/hash_probe/kernel.py:191"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:87"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention/kernel.py:76"),
+    "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
+                "src/repro/kernels/moe_gmm/kernel.py:56"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan/kernel.py:52"),
 }
 
 
@@ -702,6 +747,389 @@ def adversarial_hash_probe(args, older):
     return dk, dv, table, older(u64(ts)).to(torch.int32), q
 
 
+# ------------------------------------------------- the LM kernels ----
+# the plain version of each LM kernel
+LM_PLAIN = {"flash_attention": flash_ref.flash_attention_ref,
+            "paged_attention": paged_ref.paged_attention_ref,
+            "moe_gmm": moe_ref.moe_gmm_ref,
+            "mamba_scan": mamba_ref.mamba_scan_ref}
+
+
+@dataclasses.dataclass
+class LMCase:
+    """One call of an LM kernel's entry point, with the work it needs."""
+    label: str
+    kernel: str
+    args: tuple
+    kw: dict
+    flops: float
+    flop_rate: float
+    n_bytes: float
+    exps: float = 0.0
+    reps: int = 20
+    plain_reps: int = 2
+    library: object = None        # one PyTorch call of the same function
+    kernel_kw: dict = dataclasses.field(default_factory=dict)  # ops only
+    # held to the plain version in the inputs' dtype (else only to the
+    # plain version on float32 copies of the inputs)
+    gate_plain: bool = True
+
+    def bound(self):
+        terms = {"bytes": self.n_bytes / HBM_BYTES_PER_S,
+                 "operations": max(self.flops / self.flop_rate,
+                                   self.exps / EXP_PER_S)}
+        by = max(terms, key=terms.get)
+        return terms[by] * 1e3, by
+
+    def tol(self):
+        """atol = rtol against the plain version in the inputs' dtype."""
+        name = str(self.args[0].dtype).split(".")[-1]
+        return tolerance.TOL[self.kernel][name]
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def flash_pairs(Sq, Sk, causal, window):
+    """Query-key pairs a mask lets through, counted row by row."""
+    q = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.minimum(q, torch.tensor(Sk - 1)) if causal \
+        else torch.full_like(q, Sk - 1)
+    lo = (q - window + 1).clamp(min=0) if window is not None \
+        else torch.zeros_like(q)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def flash_case(label, gen, dev, B, S, Hq, Hkv, D, *, causal=True,
+               window=None, softcap=None, reps=10, inputs=None,
+               library=False, gate_plain=True):
+    if inputs is None:
+        inputs = (torch.randn(B, S, Hq, D, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+                  torch.randn(B, S, Hkv, D, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+                  torch.randn(B, S, Hkv, D, generator=gen, device=dev,
+                              dtype=torch.bfloat16))
+    q, k, v = inputs
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    pairs = flash_pairs(S, S, causal, window)
+    lib = None
+    if library:
+        qpos = torch.arange(S, device=dev)[:, None]
+        kpos = torch.arange(S, device=dev)[None, :]
+        band = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+        if window is not None:
+            band &= qpos - kpos < window
+        qt, kt, vt = (t.transpose(1, 2) for t in inputs)
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True).transpose(1, 2)
+    return LMCase(label, "flash_attention", inputs, kw,
+                  flops=4.0 * D * pairs * B * Hq, flop_rate=BF16_FLOPS,
+                  n_bytes=2 * _nbytes(q) + _nbytes(k, v), reps=reps,
+                  library=lib, gate_plain=gate_plain)
+
+
+def paged_work(q, k_pool, page_table, kv_len, window):
+    """The keys each sequence attends to (summed over sequences), the
+    distinct pool rows (page, slot) they are read from, and the page-table
+    entries that name them."""
+    B, n_pages = page_table.shape
+    P, ps = k_pool.shape[:2]
+    pos = torch.arange(n_pages * ps, device=q.device)[None]
+    kl = kv_len.long()[:, None]
+    vis = pos < kl
+    if window is not None:
+        vis &= pos >= kl - window
+    page = page_table.long()[:, pos[0] // ps]
+    vis &= page >= 0
+    rows = torch.zeros(P * ps, dtype=torch.bool, device=q.device)
+    rows[(page.clamp(0, P - 1) * ps + pos % ps)[vis]] = True
+    entries = int(vis.reshape(B, n_pages, ps).any(dim=2).sum())
+    return int(vis.sum()), int(rows.sum()), entries
+
+
+def paged_case(label, dev, q, k_pool, v_pool, page_table, kv_len, *,
+               window=None, softcap=None, reps=20):
+    B, Hq, D = q.shape
+    Hkv = k_pool.shape[2]
+    n_keys, n_rows, n_entries = paged_work(q, k_pool, page_table, kv_len,
+                                           window)
+    row_bytes = Hkv * D * k_pool.element_size()
+    return LMCase(label, "paged_attention",
+                  (q, k_pool, v_pool, page_table, kv_len),
+                  dict(window=window, softcap=softcap),
+                  flops=4.0 * D * Hq * n_keys, flop_rate=BF16_FLOPS,
+                  n_bytes=2 * _nbytes(q) + 2 * n_rows * row_bytes
+                  + 4 * n_entries + _nbytes(kv_len), reps=reps,
+                  plain_reps=3)
+
+
+def moe_case(label, gen, dev, E, C, D, F, *, activation="silu", x_std=1.0,
+             w_scale=None, reps=5):
+    def w(*shape, fan_in):
+        s = fan_in ** -0.5 if w_scale is None else w_scale
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16).mul_(s)
+    x = torch.randn(E, C, D, generator=gen, device=dev).mul_(x_std).bfloat16()
+    wg, wi, wo = w(E, D, F, fan_in=D), w(E, D, F, fan_in=D), \
+        w(E, F, D, fan_in=F)
+    gated = activation != "sq_relu"
+    return LMCase(label, "moe_gmm", (x, wg, wi, wo),
+                  dict(activation=activation),
+                  flops=2.0 * E * C * D * F * (3 if gated else 2),
+                  flop_rate=BF16_FLOPS,
+                  n_bytes=2 * _nbytes(x) + _nbytes(wi, wo)
+                  + (_nbytes(wg) if gated else 0), reps=reps, plain_reps=2)
+
+
+def mamba_case(label, gen, dev, B, S, Di, N, *, dtype=torch.bfloat16,
+               A_log=None, reps=20, **kw):
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(scale) \
+            .to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, Di, generator=gen, device=dev)).to(dtype)
+    x, Bm, Cm = r(B, S, Di), r(B, S, N, scale=0.3), r(B, S, N, scale=0.3)
+    if A_log is None:   # models/recurrent.py:init_mamba
+        A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=dev)).repeat(Di, 1)
+    D_skip = torch.ones(Di, dtype=torch.float32, device=dev)
+    n = B * S * Di
+    return LMCase(label, "mamba_scan", (dt, x, Bm, Cm, A_log, D_skip), {},
+                  kernel_kw=kw, flops=n * (6.0 * N + 3), flop_rate=F32_FLOPS,
+                  n_bytes=_nbytes(dt, x, Bm, Cm, A_log, D_skip)
+                  + n * x.element_size(),
+                  exps=float(n * N + Di * N), reps=reps, plain_reps=2)
+
+
+def lm_cases(dev, seed, reps):
+    """Phase 8's calls: full widths of three configurations of
+    ``src/repro/configs`` (depth and batch cut as stated) and the four
+    points of ``benchmarks/bench_kernels.py``, in bfloat16 (the mamba
+    bench point in float32, as there)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fr = max(2, reps // 2)
+    cases = []
+    # gemma2_27b.py: 32 heads, 16 KV heads, head dim 128, window 4096,
+    # attention softcap 50; S = 8,192, a cut of prefill_32k's 32,768
+    g_inputs = (torch.randn(1, 8192, 32, 128, generator=gen, device=dev,
+                            dtype=torch.bfloat16),
+                torch.randn(1, 8192, 16, 128, generator=gen, device=dev,
+                            dtype=torch.bfloat16),
+                torch.randn(1, 8192, 16, 128, generator=gen, device=dev,
+                            dtype=torch.bfloat16))
+    cases.append(flash_case("F1 gemma2-27b local layer", gen, dev, 1, 8192,
+                            32, 16, 128, window=4096, softcap=50.0, reps=fr,
+                            inputs=g_inputs))
+    cases.append(flash_case("F2 gemma2-27b global layer", gen, dev, 1, 8192,
+                            32, 16, 128, softcap=50.0, reps=fr,
+                            inputs=g_inputs))
+    # F1 with its queries scaled by 2 (logits of std 2) and by 16 (std 16:
+    # the largest reach about 56 and the cap bends them to about 40). The
+    # plain version in bfloat16 rounds each logit to bfloat16, 2^-9 of its
+    # size, which here moves the output by more than 2e-2, so these two are
+    # held to the plain version on float32 copies of their inputs alone.
+    for mul, what in ((2, "queries N(0, 4)"),
+                      (16, "queries N(0, 256), logits reach the cap")):
+        cases.append(flash_case(
+            f"F1 gemma2-27b local layer, {what}", gen, dev, 1, 8192, 32, 16,
+            128, window=4096, softcap=50.0, reps=fr, gate_plain=False,
+            inputs=(g_inputs[0] * mul,) + g_inputs[1:]))
+    # mixtral_8x22b.py: 48 heads, 8 KV heads, head dim 128, window 4096
+    cases.append(flash_case("F3 mixtral-8x22b layer", gen, dev, 1, 8192, 48,
+                            8, 128, window=4096, reps=fr, library=True))
+    # gemma2-27b decode_32k: batch 32 (a cut of 128), page size 16
+    # (serve/engine.py:34), kv_len in [1, 32768], each sequence's pages a
+    # slice of one permutation of the pool (65,536 pages, 8.6 GB)
+    B, ps, n_pages = 32, 16, 32768 // 16
+    pool = B * n_pages
+    kp = torch.randn(pool, ps, 16, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    vp = torch.randn(pool, ps, 16, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    pt = torch.randperm(pool, generator=gen, device=dev).to(torch.int32) \
+        .reshape(B, n_pages)
+    kl = torch.randint(1, 32769, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qd = torch.randn(B, 32, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    cases.append(paged_case("P1 gemma2-27b decode_32k", dev, qd, kp, vp, pt,
+                            kl, softcap=50.0, reps=reps))
+    cases.append(paged_case("P2 gemma2-27b decode_32k, window 4096", dev,
+                            qd, kp, vp, pt, kl, window=4096, softcap=50.0,
+                            reps=reps))
+    # mixtral-8x22b experts: 4,096 tokens at top-2 and capacity factor
+    # 1.25 give C = 1,280 rows per expert; weights scaled by fan-in^-0.5
+    cases.append(moe_case("M1 mixtral-8x22b experts", gen, dev, 8, 1280,
+                          6144, 16384, reps=max(2, reps // 4)))
+    # jamba_v01_52b.py: d_inner = 2 x 4096, d_state 16; B = 2, S = 4,096
+    cases.append(mamba_case("S1 jamba-v0.1 mamba layer", gen, dev, 2, 4096,
+                            8192, 16, reps=reps))
+    # benchmarks/bench_kernels.py:32-115
+    cases.append(flash_case("bench: flash 1k", gen, dev, 1, 1024, 4, 2, 128,
+                            reps=reps))
+    qb = torch.randn(16, 8, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    kb = torch.randn(512, 16, 8, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    vb = torch.randn(512, 16, 8, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    ptb = torch.arange(16, dtype=torch.int32, device=dev).repeat(16, 1)
+    klb = torch.full((16,), 256, dtype=torch.int32, device=dev)
+    cases.append(paged_case("bench: paged decode", dev, qb, kb, vb, ptb, klb,
+                            reps=reps))
+    cases.append(moe_case("bench: moe_gmm", gen, dev, 4, 128, 256, 512,
+                          w_scale=0.1, reps=reps))
+    cases.append(mamba_case("bench: mamba_scan", gen, dev, 2, 256, 128, 16,
+                            dtype=torch.float32, reps=reps, bd=64, chunk=16))
+    return cases
+
+
+def held_to(out, plain, atol, rtol):
+    """Max abs and rel error of ``out`` against ``plain`` and whether every
+    element is within ``atol + rtol·|plain|``; the rel error is taken where
+    |plain| > atol."""
+    o, p = out.float(), plain.float()
+    err = (o - p).abs()
+    big = p.abs() > atol
+    rel = float((err[big] / p.abs()[big]).max()) if big.any() else 0.0
+    ok = bool((err <= atol + rtol * p.abs()).all()) and bool(
+        torch.isfinite(o).all())
+    return float(err.max()), rel, ok
+
+
+def rms(t):
+    return float(t.float().pow(2).mean().sqrt())
+
+
+def plain_f32(c, plain_fn):
+    """The plain version on float32 copies of the case's inputs: the same
+    values, none of the bfloat16 rounding the plain version does inside.
+    The paged cases run four sequences at a time over float32 copies of
+    the pages those sequences name, as a float32 copy of the whole pool
+    does not fit beside it."""
+    up = [a.float() if a.is_floating_point() else a for a in c.args]
+    if c.kernel != "paged_attention":
+        return plain_fn(*up, **c.kw)
+    q, k_pool, v_pool, pt, kl = c.args
+    out = []
+    for i in range(0, q.shape[0], 4):
+        rows = pt[i:i + 4]
+        pages = rows[rows >= 0].long().clamp(max=k_pool.shape[0] - 1)
+        local = torch.full_like(rows, -1)
+        local[rows >= 0] = torch.arange(pages.numel(), device=q.device,
+                                        dtype=torch.int32)
+        out.append(plain_fn(q[i:i + 4].float(), k_pool[pages].float(),
+                            v_pool[pages].float(), local, kl[i:i + 4],
+                            **c.kw))
+    return torch.cat(out)
+
+
+def run_lm_phase(dev, seed, reps):
+    """Phase 8: every LM kernel through its ``ops`` entry point at full
+    width, held against its plain version, timed beside its bound."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cases = lm_cases(dev, seed, reps)
+    torch.cuda.synchronize()
+    print(f"LM inputs: {time.perf_counter() - t0:.2f} s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB", flush=True)
+    # the path: each case once through its entry point
+    reset_launch_counts()
+    outs = []
+    for c in cases:
+        mod, fn = WRAPPERS[c.kernel]
+        outs.append(getattr(mod, fn)(*c.args, **c.kw, **c.kernel_kw))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {n: sum(c.kernel == n for c in cases) for n in WRAPPERS}
+    check(counts == want, f"LM entry points launched {counts}, expected "
+                          f"{want}")
+    print(f"LM path: {len(cases)} calls, launches {counts}")
+    records = {n: [] for n in LM_PLAIN}
+    for c, out in zip(cases, outs):
+        mod = WRAPPERS[c.kernel][0]
+        plain_fn = LM_PLAIN[c.kernel]
+        plain = plain_fn(*c.args, **c.kw)
+        torch.cuda.synchronize()
+        tol = c.tol()
+        abs_err, rel_err, ok = held_to(out, plain, tol, tol)
+        scale, rms_plain = float(plain.float().abs().max()), rms(plain)
+        check(out.shape == plain.shape, f"{c.label}: shape "
+                                        f"{tuple(out.shape)} != "
+                                        f"{tuple(plain.shape)}")
+        check(ok or not c.gate_plain,
+              f"{c.label}: kernel and plain version differ beyond "
+              f"atol = rtol = {tol} (max abs {abs_err}, max rel {rel_err})")
+        del plain
+        plain32 = plain_f32(c, plain_fn)
+        if out.dtype == torch.bfloat16:
+            rtol32 = tolerance.F32_PLAIN_RTOL
+            atol32 = tolerance.F32_PLAIN_ATOL_RMS * rms(plain32)
+        else:      # float32 inputs: the plain version is already float32
+            rtol32 = atol32 = tol
+        abs32, rel32, ok32 = held_to(out, plain32, atol32, rtol32)
+        del plain32
+        torch.cuda.empty_cache()
+        check(ok32, f"{c.label}: kernel and the float32 plain version "
+                    f"differ beyond atol {atol32:.3g} + rtol {rtol32:.3g} "
+                    f"(max abs {abs32}, max rel {rel32})")
+        launch = mod.prepare(*c.args, **c.kw, **c.kernel_kw)
+        launch()
+        ms = time_events(launch, c.reps, hold=True)
+        plain_ms = time_events(lambda: plain_fn(*c.args, **c.kw),
+                               c.plain_reps)
+        lib_ms = lib_err = None
+        if c.library is not None:
+            lib_err = float((c.library().float() - out.float()).abs().max())
+            lib_ms = time_events(c.library, c.reps, hold=True)
+        bound_ms, bound_by = c.bound()
+        print(f"{c.kernel} [{c.label}]: {ms:.4f} ms/launch (CUDA events, GPU "
+              f"held, {c.reps} launches), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {c.flops:.4g} flop, "
+              f"{c.n_bytes:.4g} B, {c.exps:.4g} exp)"
+              + (f", SDPA {lib_ms:.4f} ms (max abs {lib_err:.3g} from the "
+                 f"kernel)" if lib_ms is not None else "")
+              + f"; max abs err {abs_err:.4g}, max rel err {rel_err:.4g} "
+                f"(where |plain| > {tol}), max |plain| {scale:.4g}, rms "
+                f"plain {rms_plain:.4g}: "
+                + ("within" if ok else "NOT within (not held here)")
+                + f" atol = rtol = {tol}; against the float32 plain version "
+                f"max abs {abs32:.4g}, max rel {rel32:.4g}: within atol "
+                f"{atol32:.4g} + rtol {rtol32:.4g}", flush=True)
+        records[c.kernel].append(dict(
+            case=c.label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms, max_abs_err=abs_err,
+            max_rel_err=rel_err, max_abs_plain=scale, rms_plain=rms_plain,
+            held_to_plain=c.gate_plain, within_plain_tol=ok,
+            max_abs_err_f32_plain=abs32, max_rel_err_f32_plain=rel32,
+            atol_f32_plain=atol32, rtol_f32_plain=rtol32,
+            library_max_abs_diff=lib_err, atol=tol, rtol=tol,
+            match=(ok or not c.gate_plain) and ok32, flops=c.flops,
+            bytes=c.n_bytes, exps=c.exps, reps=c.reps))
+    del outs, cases
+    torch.cuda.empty_cache()
+    entries = []
+    for name, recs in records.items():
+        head = next((r for r in recs if r["library_ms"] is not None),
+                    recs[0])   # F3 for flash (SDPA's case), else the first
+        src, replaces = KERNEL_SOURCES[name]
+        entries.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=counts[name], max_abs_err=head["max_abs_err"],
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"],
+            match=all(r["match"] for r in recs), atol=head["atol"],
+            rtol=head["rtol"], case=head["case"], cases=recs))
+    return entries
+
+
 # --------------------------------------------------------- profiling ----
 def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
     """Device time by kernel over ``n_rounds`` rounds of ``driver`` and the
@@ -758,6 +1186,9 @@ def main(argv=None):
                     help="full-mix rounds of the hash_probe path (phase 6)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-rounds", type=int, default=4)
+    ap.add_argument("--lm-reps", type=int, default=20,
+                    help="launches timed per LM case of phase 8 (half for "
+                         "attention prefill, a quarter for the expert FFN)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1006,6 +1437,11 @@ def main(argv=None):
         print_profile("mix", args.profile_rounds, *profile_rounds(
             tpcc.run_mixed_rounds, cfg, lay, st_pr, oracle,
             mix_stream(args.seed + 5), args.profile_rounds))
+
+    # ---- 8. the LM kernels on their entry points -----------------------------
+    t0 = time.perf_counter()
+    kernels.extend(run_lm_phase(dev, args.seed + 8, args.lm_reps))
+    print(f"LM phase: {time.perf_counter() - t0:.2f} s")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")

@@ -6,6 +6,12 @@ builds the port's state on ``device``; ``tpcc_state_to_numpy`` maps the
 port's state back to numpy leaves with the reference's dtypes. Both walk
 the fields by name, so any object with the reference's attribute layout
 will do. This is how both packages start from identical data.
+
+``tensor_from_numpy`` and ``tensor_to_numpy`` carry float arrays (the
+inputs and outputs of the LM kernels) across, bfloat16 included: JAX's
+bfloat16 reaches numpy as an extension dtype named ``bfloat16``, which
+``torch.from_numpy`` refuses, so its 16-bit words travel as ``int16`` and
+are viewed as ``torch.bfloat16`` on the other side.
 """
 from __future__ import annotations
 
@@ -28,6 +34,26 @@ def _t(a, device):
 
 def _tuple_from(cls, obj, device):
     return cls(*(_t(getattr(obj, f), device) for f in cls._fields))
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A float (or any numeric) numpy array as a tensor on ``device``;
+    a bfloat16 array (detected by its dtype's name) keeps its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        words = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(words.copy()).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a.copy(order="C")).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 becomes float32 (exactly), since
+    numpy has no bfloat16 of its own."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
 
 
 def tpcc_state_from_numpy(tree, device) -> TPCCState:

@@ -23,7 +23,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("batched_probe", "fused_commit", "hash_probe")
+KERNELS = ("batched_probe", "fused_commit", "hash_probe", "flash_attention",
+           "paged_attention", "moe_gmm", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,41 +14,18 @@ inside :class:`FusedCommitOut`.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from repro_torch._u32 import gidx, rows_of
 from repro_torch.core.mvcc import VersionedTable
-from repro_torch.kernels import _build
+from repro_torch.kernels import _cuda
 from repro_torch.kernels.commit.ref import FusedCommitOut, fused_commit_ref
 
-_P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-             _P, _P, _P, _P, _P, _P, ctypes.c_int64, _P, _P, _P, _P,
-             ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P]
-
-
-def _lib():
-    fn = _build.load("fused_commit").fused_commit_launch
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    return fn
-
-
-def _launch(fn, args, n, held, out, dev):
-    """Launch on the current stream; ``held`` keeps the buffers alive.
-    With no requests and no transactions there is no kernel to launch, and
-    nothing is counted."""
-    if n == 0:
-        return out
-    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"fused_commit kernel launch failed: CUDA error "
-                           f"{err}")
-    _COUNTER.launches += 1
-    return out
+_P, _I, _I64 = _cuda.P, _cuda.I, _cuda.I64
+_ARGTYPES = [_P, _P, _P, _P, _I, _I64, _I, _P, _P, _P, _P, _P, _P, _I64,
+             _P, _P, _P, _P, _I, *[_P] * 8]
 
 
 def prepare(table: VersionedTable, vec, req_slots, req_expected, req_prio,
@@ -61,24 +38,18 @@ def prepare(table: VersionedTable, vec, req_slots, req_expected, req_prio,
     if dev.type != "cuda":
         raise ValueError(f"fused_commit: no kernel for device {dev}")
     i32, b = torch.int32, torch.bool
-    for name, t, dt in (
-            ("cur_hdr", table.cur_hdr, i32), ("old_hdr", table.old_hdr, i32),
-            ("next_write", table.next_write, i32), ("vec", vec, i32),
-            ("req_slots", req_slots, i32), ("req_expected", req_expected, i32),
-            ("req_prio", req_prio, i32), ("req_active", req_active, b),
-            ("txn_of_req", txn_of_req, i32), ("new_hdr", new_hdr, i32),
-            ("txn_ok", txn_ok, b), ("txn_slot", txn_slot, i32),
-            ("cts", cts, i32), ("ext_fails", ext_fails, i32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"fused_commit: {name} must be a contiguous {dt} "
-                             f"tensor on {dev}, got {t.dtype} on {t.device}")
+    _cuda.check("fused_commit", dev, i32, cur_hdr=table.cur_hdr,
+                old_hdr=table.old_hdr, next_write=table.next_write, vec=vec,
+                req_slots=req_slots, req_expected=req_expected,
+                req_prio=req_prio, txn_of_req=txn_of_req, new_hdr=new_hdr,
+                txn_slot=txn_slot, cts=cts, ext_fails=ext_fails)
+    _cuda.check("fused_commit", dev, b, req_active=req_active, txn_ok=txn_ok)
     R, Q, T = table.n_records, req_slots.shape[0], txn_ok.shape[0]
     empty = lambda *s, dtype=i32: torch.empty(s, dtype=dtype, device=dev)
     # scratch: arb is reset per touched slot by the kernel itself
     scratch = (empty(R), empty(Q, 2), empty(Q), empty(Q, dtype=b))
     out = (empty(Q, dtype=b), empty(T, dtype=b), empty(Q, dtype=b),
            empty(T))
-    fn = _lib()
     args = (table.cur_hdr.data_ptr(), table.old_hdr.data_ptr(),
             table.next_write.data_ptr(), vec.data_ptr(), vec.shape[0], R,
             table.n_old, req_slots.data_ptr(), req_expected.data_ptr(),
@@ -91,7 +62,11 @@ def prepare(table: VersionedTable, vec, req_slots, req_expected, req_prio,
     # its address could be freed and handed to another tensor meanwhile
     held = (table, vec, req_slots, req_expected, req_prio, req_active,
             txn_of_req, new_hdr, txn_ok, txn_slot, cts, ext_fails, scratch)
-    return functools.partial(_launch, fn, args, max(Q, T), held, out, dev)
+    if max(Q, T) == 0:   # no kernel to launch, nothing counted
+        return lambda: out
+    return functools.partial(
+        _cuda.launch, _COUNTER, _cuda.entry("fused_commit", _ARGTYPES),
+        args, dev, held, out)
 
 
 def fused_commit(table: VersionedTable, vec, req_slots, req_expected,
@@ -129,4 +104,4 @@ def fused_commit(table: VersionedTable, vec, req_slots, req_expected,
 
 
 fused_commit.launches = 0
-_COUNTER = fused_commit   # the count lives on the public wrapper
+_COUNTER = fused_commit

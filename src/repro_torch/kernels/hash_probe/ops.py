@@ -10,39 +10,24 @@ so a caller can repeat it on the same buffers.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from repro_torch.core.mvcc import VersionedTable
-from repro_torch.kernels import _build
+from repro_torch.kernels import _cuda
 from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
     hash_probe_ref
 
-_P = ctypes.c_void_p
-_I, _I64 = ctypes.c_int, ctypes.c_int64
+_P, _I, _I64 = _cuda.P, _cuda.I, _cuda.I64
 # the header planes and the timestamp vector, as both launches take them
 _TABLE_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _I]
 _ARGTYPES = {
     "batched_probe": [_P, _P, _I64, _I, *_TABLE_ARGTYPES, _P, _P, _P, _I64,
-                      _P, _P, _P, _P, _P],
+                      _P, _P, _P, _P],
     "hash_probe": [_P, _P, _I64, _I, *_TABLE_ARGTYPES, _P, _I64, _P, _P, _P,
-                   _P, _P],
+                   _P],
 }
-
-
-def _lib(name):
-    fn = getattr(_build.load(name), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
-    return fn
-
-
-def _check(name, t, dtype, device):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"probe: {name} must be a contiguous {dtype} "
-                         f"tensor on {device}, got {t.dtype} on {t.device}")
 
 
 def _check_table(table: VersionedTable, ts_vec):
@@ -51,11 +36,9 @@ def _check_table(table: VersionedTable, ts_vec):
     dev = table.cur_hdr.device
     if dev.type != "cuda":
         raise ValueError(f"probe: no kernel for device {dev}")
-    for name, t in (("cur_hdr", table.cur_hdr), ("old_hdr", table.old_hdr),
-                    ("next_write", table.next_write),
-                    ("ovf_hdr", table.ovf_hdr), ("ovf_next", table.ovf_next),
-                    ("ts_vec", ts_vec)):
-        _check(name, t, torch.int32, dev)
+    _cuda.check("probe", dev, torch.int32, cur_hdr=table.cur_hdr,
+                old_hdr=table.old_hdr, next_write=table.next_write,
+                ovf_hdr=table.ovf_hdr, ovf_next=table.ovf_next, ts_vec=ts_vec)
     return dev
 
 
@@ -74,17 +57,14 @@ def _outputs(Q, dev):
             torch.empty((Q,), dtype=torch.int32, device=dev))
 
 
-def _launch(counter, fn, args, n_q, held, out, dev):
-    """Launch on the current stream; ``held`` keeps the buffers alive.
+def _launcher(name, args, n_q, held, out, dev):
+    """The launch of kernel ``name``; ``held`` keeps the buffers alive.
     With no lanes there is no kernel to launch, and nothing is counted."""
     if n_q == 0:
-        return out
-    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{counter.__name__} kernel launch failed: CUDA "
-                           f"error {err}")
-    counter.launches += 1
-    return out
+        return lambda: out
+    return functools.partial(
+        _cuda.launch, _COUNTERS[name], _cuda.entry(name, _ARGTYPES[name]),
+        args, dev, held, out)
 
 
 def prepare(dir_keys, dir_vals, table: VersionedTable, ts_vec,
@@ -93,16 +73,15 @@ def prepare(dir_keys, dir_vals, table: VersionedTable, ts_vec,
     outputs; returns a function that launches the kernel into them and
     returns ``(slot, found, src, pos)``."""
     dev = _check_table(table, ts_vec)
-    _check("fallback_slots", fallback_slots, torch.int32, dev)
+    _cuda.check("probe", dev, torch.int32, fallback_slots=fallback_slots)
     if dir_keys is None:
         n_buckets = 0
         dir_keys = dir_vals = keys = key_mask = fallback_slots  # never read
     else:
         n_buckets = dir_keys.shape[0]
-        _check("dir_keys", dir_keys, torch.int32, dev)
-        _check("dir_vals", dir_vals, torch.int32, dev)
-        _check("keys", keys, torch.int32, dev)
-        _check("key_mask", key_mask, torch.bool, dev)
+        _cuda.check("probe", dev, torch.int32, dir_keys=dir_keys,
+                    dir_vals=dir_vals, keys=keys)
+        _cuda.check("probe", dev, torch.bool, key_mask=key_mask)
     Q = fallback_slots.shape[0]
     out = _outputs(Q, dev)
     args = (dir_keys.data_ptr(), dir_vals.data_ptr(), n_buckets, max_probes,
@@ -113,8 +92,7 @@ def prepare(dir_keys, dir_vals, table: VersionedTable, ts_vec,
     # its address could be freed and handed to another tensor meanwhile
     held = (dir_keys, dir_vals, table, ts_vec, fallback_slots, keys,
             key_mask)
-    return functools.partial(_launch, _COUNTERS["batched_probe"],
-                             _lib("batched_probe"), args, Q, held, out, dev)
+    return _launcher("batched_probe", args, Q, held, out, dev)
 
 
 def batched_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec,
@@ -138,9 +116,8 @@ def prepare_hash_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec,
     returns a function that launches the kernel into them and returns
     ``(slot, found, src, pos)``."""
     dev = _check_table(table, ts_vec)
-    for name, t in (("dir_keys", dir_keys), ("dir_vals", dir_vals),
-                    ("queries", queries)):
-        _check(name, t, torch.int32, dev)
+    _cuda.check("probe", dev, torch.int32, dir_keys=dir_keys,
+                dir_vals=dir_vals, queries=queries)
     if dir_keys.shape[0] == 0:
         raise ValueError("hash_probe: the directory needs at least one "
                          "bucket")
@@ -150,8 +127,7 @@ def prepare_hash_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec,
             max_probes, *_table_args(table, ts_vec), queries.data_ptr(), Q,
             *(o.data_ptr() for o in out))
     held = (dir_keys, dir_vals, table, ts_vec, queries)
-    return functools.partial(_launch, _COUNTERS["hash_probe"],
-                             _lib("hash_probe"), args, Q, held, out, dev)
+    return _launcher("hash_probe", args, Q, held, out, dev)
 
 
 def hash_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec, queries,
@@ -170,6 +146,4 @@ def hash_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec, queries,
 
 batched_probe.launches = 0
 hash_probe.launches = 0
-# the counts live on the original wrapper objects, so they stay reachable
-# when a caller rebinds the module's names
 _COUNTERS = {"batched_probe": batched_probe, "hash_probe": hash_probe}

@@ -1,0 +1,115 @@
+"""Attention primitives of the model stack (``repro/models/common.py``):
+logit softcap, the online-softmax step, chunked attention and decode
+attention. They are the plain versions the attention kernels are held
+against, so they keep the reference's numerics: the query is scaled in its
+own dtype, the scores of a bfloat16 product are rounded to bfloat16 before
+they are widened, and the softmax and the value sum run in float32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def softcap(logits, cap: Optional[float]):
+    """gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+def _attend_block(q, k, v, bias, m_prev, l_prev, o_prev, attn_cap):
+    """One online-softmax step. q:[B,H,Q,D] k,v:[B,H,C,D] bias:[B,1|H,Q,C]."""
+    s = torch.einsum("bhqd,bhcd->bhqc", q, k).float()
+    s = softcap(s, attn_cap) + bias
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m_prev - m_new)
+    l_new = l_prev * corr + p.sum(dim=-1)
+    o_new = o_prev * corr[..., None] \
+        + torch.einsum("bhqc,bhcd->bhqd", p, v.float())
+    return m_new, l_new, o_new
+
+
+def chunked_attention(q, k, v, *, positions_q, positions_k, causal: bool,
+                      window: Optional[int] = None, prefix_len=None,
+                      attn_cap: Optional[float] = None, chunk: int = 512,
+                      scale: Optional[float] = None):
+    """Online-softmax attention with GQA, sliding window, prefix-LM masks.
+
+    q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] (Hq % Hkv == 0). ``window``:
+    keys within ``window`` of the query position. ``prefix_len``: [B] —
+    keys with pos < prefix_len are visible to every query. Keys are taken
+    ``chunk`` at a time. A query row that sees no key gets the reference's
+    answer: every key, padding included, weighted alike.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qh = (q * scale).transpose(1, 2).reshape(B, Hkv, g * Sq, D)
+    kh = k.transpose(1, 2)
+    vh = v.transpose(1, 2)
+
+    n_chunks = -(-Sk // chunk)
+    pad = n_chunks * chunk - Sk
+    kh = torch.nn.functional.pad(kh, (0, 0, 0, pad))
+    vh = torch.nn.functional.pad(vh, (0, 0, 0, pad))
+    pk = torch.nn.functional.pad(positions_k, (0, pad), value=-10 ** 9)
+
+    dev = q.device
+    m = torch.full((B, Hkv, g * Sq), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, Hkv, g * Sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((B, Hkv, g * Sq, D), dtype=torch.float32, device=dev)
+    dq = positions_q[:, None, :, None]                # [B,1,Sq,1]
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        dk = pk[:, None, None, sl]                    # [B,1,1,chunk]
+        ok = dk > -10 ** 8
+        vis = dk <= dq if causal else torch.ones_like(dk <= dq)
+        if window is not None:
+            vis = vis & (dq - dk < window)
+        if prefix_len is not None:
+            vis = vis | (dk < prefix_len[:, None, None, None])
+        bias = torch.where(vis & ok, 0.0, NEG_INF).float()
+        bias = bias.expand(B, 1, Sq, chunk)[:, :, None] \
+            .expand(B, 1, g, Sq, chunk).reshape(B, 1, g * Sq, chunk)
+        m, l, o = _attend_block(qh, kh[:, :, sl], vh[:, :, sl], bias, m, l,
+                                o, attn_cap)
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    o = o.reshape(B, Hq, Sq, D)
+    return o.transpose(1, 2).to(q.dtype)             # [B,Sq,Hq,D]
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, window=None,
+                     attn_cap=None, scale=None, sink_len: int = 0):
+    """Single-token decode attention over a KV cache.
+
+    q: [B, Hq, D]; k_cache/v_cache: [B, S, Hkv, D]; kv_len: [B] valid
+    length. Returns [B, Hq, D]. Window masking keeps only the trailing
+    ``window`` positions (plus ``sink_len`` leading sink tokens when set).
+    A sequence that sees no position (``kv_len = 0``) gets the reference's
+    answer: the plain average of its cache rows.
+    """
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qh = (q * scale).reshape(B, Hkv, g, D)
+    pos = torch.arange(S, device=q.device)[None, :]   # [1,S]
+    vis = pos < kv_len[:, None]
+    if window is not None:
+        in_win = pos >= (kv_len[:, None] - window)
+        if sink_len:
+            in_win = in_win | (pos < sink_len)
+        vis = vis & in_win
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache).float()
+    s = softcap(s, attn_cap)
+    s = torch.where(vis[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype), v_cache)
+    return o.reshape(B, Hq, D)

@@ -5,7 +5,10 @@ its cases with numpy and the port alone, and ``test_torch_kernels.py``
 reuses the same case functions to hold the plain versions against the
 reference. Every test here is marked ``gpu`` and skips without a card;
 run them there with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
-Every output is an integer or a bool: the tolerance is exact equality.
+The protocol kernels' outputs are integers or bools: the tolerance is
+exact equality. The LM kernels' outputs are floats, held to the
+reference's tolerances (``LM_TOL``, ``MAMBA_TOL`` of
+``repro_torch.kernels.tolerance``: those of ``tests/test_kernels.py``).
 """
 import numpy as np
 import pytest
@@ -20,6 +23,15 @@ from repro_torch.kernels.commit.ref import fused_commit_ref
 from repro_torch.kernels.hash_probe import ops as probe_ops
 from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
     hash_probe_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.mamba_scan import ops as mamba_ops
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.moe_gmm import ops as moe_ops
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.tolerance import LM_TOL, MAMBA_TOL
 
 
 def _t(a, device="cpu"):
@@ -417,3 +429,239 @@ def _leaves(x):
     if x is None:
         return []
     return [leaf for y in x for leaf in _leaves(y)]
+
+
+# ------------------------------------------------------- LM kernel cases ----
+# the sweep shapes of tests/test_kernels.py; inputs are float32 numpy arrays
+# made from a seed, rounded to the working dtype by whoever runs them
+FLASH_CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, window, softcap
+    (1, 64, 64, 2, 2, 32, True, None, None),
+    (2, 100, 100, 4, 2, 32, True, None, None),     # GQA, ragged seq
+    (2, 96, 96, 4, 1, 64, True, 33, None),         # MQA + window
+    (1, 64, 128, 2, 2, 32, False, None, None),     # cross-attn shape
+    (1, 80, 80, 2, 2, 32, True, None, 25.0),       # softcap (gemma2)
+]
+PAGED_CASES = [(4, 2, 8, None), (8, 8, 16, 9), (4, 1, 8, None)]  # Hq, Hkv,
+# ps, window
+MOE_CASES = [(2, 16, 16, 32, "silu"), (3, 20, 16, 40, "gelu"),
+             (1, 8, 32, 24, "sq_relu")]           # E, C, D, F, activation
+MAMBA_CASES = [(2, 40, 24, 8, 8, 8), (1, 64, 16, 16, 16, 16),
+               (2, 33, 8, 4, 8, 8)]   # B, S, Di, N, bd, chunk; S=33 ragged
+LM_DTYPES = ["float32", "bfloat16"]
+# the reference's divergent input for flash: rows 28-39 see no key
+NO_KEY_ROWS = (1, 40, 24, 2, 2, 32, True, 5, None)
+
+
+def flash_inputs(B, Sq, Sk, Hq, Hkv, D, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, Sq, Hq, D).astype(np.float32),
+            rng.randn(B, Sk, Hkv, D).astype(np.float32),
+            rng.randn(B, Sk, Hkv, D).astype(np.float32))
+
+
+def flash_visible_rows(Sq, Sk, causal, window):
+    """Query rows that see at least one key."""
+    qp, kp = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        vis &= kp <= qp
+    if window is not None:
+        vis &= qp - kp < window
+    return vis.any(axis=1)
+
+
+def paged_inputs(Hq, Hkv, ps, seed=1, B=3, D=32, P=40):
+    """The sweep's pools and tables: every page below kv_len is mapped."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, Hq, D).astype(np.float32)
+    kp = rng.randn(P, ps, Hkv, D).astype(np.float32)
+    vp = rng.randn(P, ps, Hkv, D).astype(np.float32)
+    pt = np.array([[3, 7, 11, -1, -1], [0, 1, 2, 4, 5],
+                   [20, 21, -1, -1, -1]], np.int32)
+    kv_len = np.array([2 * ps + 3, 5 * ps, ps + 1], np.int32)
+    return q, kp, vp, pt, kv_len
+
+
+def moe_inputs(E, C, D, F, seed=2):
+    rng = np.random.RandomState(seed)
+    return ((rng.randn(E, C, D) * 0.5).astype(np.float32),
+            (rng.randn(E, D, F) * 0.2).astype(np.float32),
+            (rng.randn(E, D, F) * 0.2).astype(np.float32),
+            (rng.randn(E, F, D) * 0.2).astype(np.float32))
+
+
+def mamba_inputs(B, S, Di, N, seed=3):
+    """dt, x, Bm, Cm (to be rounded to the working dtype) and A_log,
+    D_skip (float32), as the reference's sweep draws them."""
+    rng = np.random.RandomState(seed)
+    dt = np.log1p(np.exp(rng.randn(B, S, Di))).astype(np.float32)
+    x = rng.randn(B, S, Di).astype(np.float32)
+    Bm = (rng.randn(B, S, N) * 0.3).astype(np.float32)
+    Cm = (rng.randn(B, S, N) * 0.3).astype(np.float32)
+    A_log = np.log(np.arange(1, N + 1, dtype=np.float32)[None]
+                   * (1.0 + 0.1 * np.arange(Di, dtype=np.float32)[:, None]))
+    D_skip = np.linspace(0.5, 1.5, Di).astype(np.float32)
+    return dt, x, Bm, Cm, A_log.astype(np.float32), D_skip
+
+
+def _f(a, dtype, dev):
+    return torch.from_numpy(a).to(dev).to(getattr(torch, dtype))
+
+
+def _close(port, plain, tol, what):
+    np.testing.assert_allclose(port.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), rtol=tol,
+                               atol=tol, err_msg=what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(case, dtype):
+    dev = _cuda()
+    B, Sq, Sk, Hq, Hkv, D, causal, window, softcap = case
+    q, k, v = (_f(a, dtype, dev) for a in flash_inputs(B, Sq, Sk, Hq, Hkv,
+                                                         D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    plain = flash_attention_ref(q, k, v, **kw)
+    for bq, bk in ((32, 32), (128, 128)):
+        out = flash_ops.flash_attention(q, k, v, bq=bq, bk=bk, **kw)
+        torch.cuda.synchronize()
+        _close(out, plain, LM_TOL[dtype], f"bq={bq} bk={bk}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_flash_kernel_rows_without_keys_on_card(dtype):
+    """Sq=40, Sk=24, window 5, causal: rows 28-39 see no key. The kernel
+    matches its plain version on rows 0-27 and gives 0 on rows 28-39 (the
+    plain version, like the reference, averages every key there)."""
+    dev = _cuda()
+    B, Sq, Sk, Hq, Hkv, D, causal, window, _ = NO_KEY_ROWS
+    q, k, v = (_f(a, dtype, dev) for a in flash_inputs(B, Sq, Sk, Hq, Hkv,
+                                                         D))
+    seen = flash_visible_rows(Sq, Sk, causal, window)
+    assert seen[:28].all() and not seen[28:].any()
+    plain = flash_attention_ref(q, k, v, causal=causal, window=window)
+    for bq, bk in ((8, 32), (32, 32), (128, 128)):
+        out = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        window=window, bq=bq, bk=bk)
+        torch.cuda.synchronize()
+        _close(out[:, seen], plain[:, seen], LM_TOL[dtype], f"bq={bq}")
+        assert not out[:, ~seen].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain_on_card(case, dtype):
+    dev = _cuda()
+    Hq, Hkv, ps, window = case
+    q, kp, vp, pt, kl = paged_inputs(Hq, Hkv, ps)
+    q, kp, vp = (_f(a, dtype, dev) for a in (q, kp, vp))
+    pt, kl = torch.from_numpy(pt).to(dev), torch.from_numpy(kl).to(dev)
+    for softcap in (None, 25.0):
+        out = paged_ops.paged_attention(q, kp, vp, pt, kl, window=window,
+                                        softcap=softcap)
+        plain = paged_attention_ref(q, kp, vp, pt, kl, window=window,
+                                    softcap=softcap)
+        torch.cuda.synchronize()
+        _close(out, plain, LM_TOL[dtype], f"softcap={softcap}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_paged_kernel_own_contract_on_card(dtype):
+    """By construction: ``kv_len = 0`` gives exactly 0, and a sequence with
+    an unmapped page inside ``kv_len`` (no window) equals the plain version
+    on the same sequence with that page dropped from its table and
+    ``kv_len`` reduced by one page (decode attention does not depend on
+    the order of the keys)."""
+    dev = _cuda()
+    ps = 8
+    q, kp, vp, _, _ = paged_inputs(4, 2, ps)
+    q, kp, vp = (_f(a, dtype, dev) for a in (q, kp, vp))
+    pt = torch.tensor([[3, -1, 7, 11, -1], [0, 1, 2, 4, 5],
+                       [20, 21, -1, -1, -1]], dtype=torch.int32, device=dev)
+    kl = torch.tensor([3 * ps + 2, 0, ps + 1], dtype=torch.int32,
+                      device=dev)
+    dropped = torch.tensor([[3, 7, 11, -1, -1], [0, 1, 2, 4, 5],
+                            [20, 21, -1, -1, -1]], dtype=torch.int32,
+                           device=dev)
+    kl_dropped = torch.tensor([2 * ps + 2, 0, ps + 1], dtype=torch.int32,
+                              device=dev)
+    out = paged_ops.paged_attention(q, kp, vp, pt, kl)
+    plain = paged_attention_ref(q, kp, vp, dropped, kl_dropped)
+    torch.cuda.synchronize()
+    assert not out[1].any()
+    _close(out[0::2], plain[0::2], LM_TOL[dtype], "unmapped page dropped")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_kernel_matches_plain_on_card(case, dtype):
+    """silu, gelu (tanh) and sq_relu, ragged C and F."""
+    dev = _cuda()
+    E, C, D, F, act = case
+    args = [_f(a, dtype, dev) for a in moe_inputs(E, C, D, F)]
+    out = moe_ops.moe_gmm(*args, activation=act)
+    plain = moe_gmm_ref(*args, activation=act)
+    torch.cuda.synchronize()
+    _close(out, plain, LM_TOL[dtype], act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", MAMBA_CASES)
+def test_mamba_kernel_matches_plain_on_card(case, dtype):
+    """Including a ragged S (33 steps, chunk 8: the wrapper pads)."""
+    dev = _cuda()
+    B, S, Di, N, bd, chunk = case
+    dt, x, Bm, Cm, A_log, D_skip = mamba_inputs(B, S, Di, N)
+    args = [_f(a, dtype, dev) for a in (dt, x, Bm, Cm)] \
+        + [torch.from_numpy(A_log).to(dev), torch.from_numpy(D_skip).to(dev)]
+    out = mamba_ops.mamba_scan(*args, bd=bd, chunk=chunk)
+    plain = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, Di)
+    _close(out, plain, MAMBA_TOL[dtype], f"S={S} chunk={chunk}")
+
+
+@pytest.mark.gpu
+def test_lm_empty_calls_launch_nothing_and_count_nothing():
+    dev = _cuda()
+    wrappers = (flash_ops.flash_attention, paged_ops.paged_attention,
+                moe_ops.moe_gmm, mamba_ops.mamba_scan)
+    before = [w.launches for w in wrappers]
+    e = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    assert flash_ops.flash_attention(e(0, 8, 2, 32), e(0, 8, 2, 32),
+                                     e(0, 8, 2, 32)).shape == (0, 8, 2, 32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    assert paged_ops.paged_attention(
+        e(0, 4, 32), e(4, 8, 2, 32), e(4, 8, 2, 32),
+        torch.zeros((0, 2), **i32), torch.zeros((0,), **i32)).shape \
+        == (0, 4, 32)
+    assert moe_ops.moe_gmm(e(2, 0, 16), e(2, 16, 8), e(2, 16, 8),
+                           e(2, 8, 16)).shape == (2, 0, 16)
+    assert mamba_ops.mamba_scan(e(1, 0, 8), e(1, 0, 8), e(1, 0, 4),
+                                e(1, 0, 4), e(8, 4), e(8)).shape == (1, 0, 8)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.gpu
+def test_lm_wrappers_raise_on_bad_cuda_inputs():
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev)
+               for a in flash_inputs(1, 8, 8, 2, 2, 32))
+    with pytest.raises(ValueError):                # float16 is not taken
+        flash_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):                # not contiguous
+        flash_ops.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError):                # k on another device
+        flash_ops.flash_attention(q, k.cpu(), v)
+    x, wg, wi, wo = (torch.from_numpy(a).to(dev)
+                     for a in moe_inputs(1, 8, 16, 8))
+    with pytest.raises(ValueError):
+        moe_ops.moe_gmm(x, wg.bfloat16(), wi, wo)
