@@ -8,7 +8,11 @@ against their plain PyTorch versions.
 Phases, each fatal on failure:
 
 1. build the seven CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, started together);
+   each, started together), print every kernel function's registers and
+   spills as ``ptxas -v`` reports them, and count the tensor-core MMA
+   instructions (``HMMA``, ``HGMMA``) of each function in the built
+   ``flash_attention`` and ``moe_gmm`` libraries (``cuobjdump -sass``):
+   every function of their bf16 routes must have some;
 2. load TPC-C at one NAM-DB memory server's scale (50 warehouses, 100,000
    items, 3,000 customers per district, 60 threads) on the card;
 3. run ``batched_probe`` and ``fused_commit`` and their plain versions on
@@ -52,7 +56,10 @@ Phases, each fatal on failure:
    (atol = rtol = 2e-2, mamba 5e-2) and against the plain version on
    float32 copies of its inputs (2^-7 of each value plus 1e-3 of the
    output's RMS, ``kernels/tolerance.py``), timed beside its bound, its
-   plain version and, for the mixtral attention layer, SDPA. Two more
+   plain version and, for the mixtral attention layer, SDPA; beside each
+   expert FFN call the same products as cuBLAS bf16 ``torch.bmm`` are
+   timed as a tensor-core yardstick (never on the path, and not the same
+   function: it rounds ``a·h`` to bf16). Two more
    calls of the gemma2 local layer, with queries scaled by 2 and by 16 so
    that the logits reach the softcap's range, are held to the float32
    plain version alone.
@@ -66,6 +73,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -747,6 +756,70 @@ def adversarial_hash_probe(args, older):
     return dk, dv, table, older(u64(ts)).to(torch.int32), q
 
 
+# ----------------------------------------------- what was built ----
+# the libraries whose bf16 routes run on the tensor cores
+TC_KERNELS = ("flash_attention", "moe_gmm")
+
+
+def _tool(name):
+    """A CUDA toolkit program beside ``nvcc``, else on ``PATH``."""
+    return shutil.which(name, path=str(Path(_build.find_nvcc()).parent)) \
+        or shutil.which(name)
+
+
+def demangle(names):
+    """``{mangled: readable}``: the name without namespace or parameters,
+    as ``cu++filt`` gives it (the mangled name where it is missing)."""
+    tool = _tool("cu++filt") or _tool("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    short = [re.sub(r"\(.*$", "", re.sub(
+        r"\(anonymous namespace\)::|<unnamed>::|\(int\)|^void ", "", o))
+        .strip() for o in out]
+    return dict(zip(names, short))
+
+
+def ptxas_functions(log):
+    """``[(function, registers, "stores/loads")]`` from ``nvcc -Xptxas -v``
+    output: each entry function's register count and spilled bytes."""
+    rows, fn, spill = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            rows.append((fn, int(m.group(1)), spill))
+            fn, spill = None, "?"
+    names = demangle([r[0] for r in rows])
+    return [(names[f], r, sp) for f, r, sp in rows]
+
+
+def sass_mma_counts(name):
+    """``{function: n}``: the tensor-core MMA instructions (``HMMA``,
+    ``HGMMA``) in each function of kernel ``name``'s built library."""
+    tool = _tool("cuobjdump")
+    check(tool is not None, "cuobjdump not found beside nvcc or on PATH")
+    sass = subprocess.run([tool, "-sass", str(_build.library(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    names = demangle(list(counts))
+    return {names[f]: n for f, n in counts.items()}
+
+
 # ------------------------------------------------- the LM kernels ----
 # the plain version of each LM kernel
 LM_PLAIN = {"flash_attention": flash_ref.flash_attention_ref,
@@ -769,6 +842,7 @@ class LMCase:
     reps: int = 20
     plain_reps: int = 2
     library: object = None        # one PyTorch call of the same function
+    yardstick: object = None      # a tensor-core call of other numerics
     kernel_kw: dict = dataclasses.field(default_factory=dict)  # ops only
     # held to the plain version in the inputs' dtype (else only to the
     # plain version on float32 copies of the inputs)
@@ -882,7 +956,25 @@ def moe_case(label, gen, dev, E, C, D, F, *, activation="silu", x_std=1.0,
                   flops=2.0 * E * C * D * F * (3 if gated else 2),
                   flop_rate=BF16_FLOPS,
                   n_bytes=2 * _nbytes(x) + _nbytes(wi, wo)
-                  + (_nbytes(wg) if gated else 0), reps=reps, plain_reps=2)
+                  + (_nbytes(wg) if gated else 0), reps=reps, plain_reps=2,
+                  yardstick=moe_yardstick(x, wg, wi, wo, activation))
+
+
+def moe_yardstick(x, wg, wi, wo, activation):
+    """The expert FFN's products as cuBLAS bf16 ``torch.bmm`` (the gate's
+    only where the activation reads it), the last on an ``a·h`` made once
+    and rounded to bf16: a tensor-core yardstick of the kernel's time, not
+    the same function."""
+    gated = activation != "sq_relu"
+    ah = moe_ref.act_and_up(torch.bmm(x, wg).float(),
+                            torch.bmm(x, wi).float(), activation).bfloat16()
+
+    def products():
+        if gated:
+            torch.bmm(x, wg)
+        torch.bmm(x, wi)
+        torch.bmm(ah, wo)
+    return products
 
 
 def mamba_case(label, gen, dev, B, S, Di, N, *, dtype=torch.bfloat16,
@@ -1084,10 +1176,13 @@ def run_lm_phase(dev, seed, reps):
         ms = time_events(launch, c.reps, hold=True)
         plain_ms = time_events(lambda: plain_fn(*c.args, **c.kw),
                                c.plain_reps)
-        lib_ms = lib_err = None
+        lib_ms = lib_err = yard_ms = None
         if c.library is not None:
             lib_err = float((c.library().float() - out.float()).abs().max())
             lib_ms = time_events(c.library, c.reps, hold=True)
+        if c.yardstick is not None:
+            c.yardstick()
+            yard_ms = time_events(c.yardstick, c.reps, hold=True)
         bound_ms, bound_by = c.bound()
         print(f"{c.kernel} [{c.label}]: {ms:.4f} ms/launch (CUDA events, GPU "
               f"held, {c.reps} launches), plain {plain_ms:.4f} ms, bound "
@@ -1095,6 +1190,9 @@ def run_lm_phase(dev, seed, reps):
               f"{c.n_bytes:.4g} B, {c.exps:.4g} exp)"
               + (f", SDPA {lib_ms:.4f} ms (max abs {lib_err:.3g} from the "
                  f"kernel)" if lib_ms is not None else "")
+              + (f", cuBLAS bf16 bmm yardstick {yard_ms:.4f} ms (the same "
+                 f"products, a·h rounded to bf16; not on the path)"
+                 if yard_ms is not None else "")
               + f"; max abs err {abs_err:.4g}, max rel err {rel_err:.4g} "
                 f"(where |plain| > {tol}), max |plain| {scale:.4g}, rms "
                 f"plain {rms_plain:.4g}: "
@@ -1104,7 +1202,8 @@ def run_lm_phase(dev, seed, reps):
                 f"{atol32:.4g} + rtol {rtol32:.4g}", flush=True)
         records[c.kernel].append(dict(
             case=c.label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms, max_abs_err=abs_err,
+            bound_by=bound_by, library_ms=lib_ms, yardstick_ms=yard_ms,
+            max_abs_err=abs_err,
             max_rel_err=rel_err, max_abs_plain=scale, rms_plain=rms_plain,
             held_to_plain=c.gate_plain, within_plain_tol=ok,
             max_abs_err_f32_plain=abs32, max_rel_err_f32_plain=rel32,
@@ -1210,9 +1309,16 @@ def main(argv=None):
     check(sorted(logs) == sorted(KERNEL_SOURCES),
           f"built {sorted(logs)}, expected {sorted(KERNEL_SOURCES)}")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for fn, regs, spill in ptxas_functions(log):
+            print(f"  {name}: {fn}: {regs} registers, spill stores/loads "
+                  f"{spill} bytes")
+    for name in TC_KERNELS:
+        counts = sass_mma_counts(name)
+        for fn, n in counts.items():
+            print(f"  {name}: {fn}: {n} tensor-core MMA instructions (SASS)")
+        tc = {fn: n for fn, n in counts.items() if "_tc_" in fn}
+        check(tc and all(tc.values()), f"{name}: a bf16 route function has "
+                                       f"no tensor-core MMA: {counts}")
 
     # ---- 2. load ----------------------------------------------------------
     cfg = SLICE

@@ -56,6 +56,12 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+def library(name: str) -> Path:
+    """The path of kernel ``name``'s shared library for the sources and
+    flags as they stand (built or not)."""
+    return _target(name)[1]
+
+
 def _start(name: str, nvcc: str):
     """Start compiling ``name`` unless its library exists; returns the
     running process (or None) and the library path."""

@@ -7,6 +7,11 @@ with no query row launches nothing and counts nothing. :func:`prepare`
 validates and folds the inputs once and returns the launch, so a caller
 can repeat it on the same buffers.
 
+The kernel has two routes, chosen by dtype: bfloat16 runs on the tensor
+cores with its own tiles (:func:`tc_tiles`, :func:`tc_smem_bytes`), and
+float32 on the FMA units with the tiles :func:`tile_sizes` picks from
+``bq`` and ``bk``.
+
 On a query row that sees no key (a window with Sq > Sk + window - 1) the
 kernel returns 0; the plain version, like the reference, returns an
 average of every key there. Every other row agrees.
@@ -23,19 +28,39 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 _ARGTYPES = [_cuda.P] * 4 + [_cuda.I, _cuda.I64] + [_cuda.I] * 8 \
     + [_cuda.F32, _cuda.F32] + [_cuda.I] * 3
 HEAD_DIMS = (32, 64, 128, 256)
-_ROWS, _KEYS = 8, 32   # query rows per warp, keys per sub-tile
+_ROWS, _KEYS = 8, 32   # float32 route: query rows per warp, keys per sub-tile
+TC_BQ, TC_STAGES = 128, 3  # bf16 route: query rows per block, K/V ring depth
+_ATOM = 1024                # a 128-byte swizzle atom (8 rows), wgmma's
+
+
+def tc_tiles(D: int):
+    """The bf16 route's query rows per block and keys per stage: 128 rows
+    (two warpgroups of 64) and 64 keys, 32 at D = 256 so that the
+    accumulators of 64 rows by 256 dimensions leave registers for the
+    scores."""
+    return TC_BQ, 64 if D <= 128 else 32
+
+
+def tc_smem_bytes(D: int) -> int:
+    """Shared memory of one bf16 block: the mbarriers (Q's, and a full K,
+    a full V and an empty one per stage), one swizzle atom of slack to
+    align the tiles, the query tile, and the K and V rings of
+    ``TC_STAGES`` tiles, bf16 as TMA writes them."""
+    bq, bk = tc_tiles(D)
+    return 8 * (1 + 3 * TC_STAGES) + _ATOM \
+        + 2 * D * (bq + 2 * TC_STAGES * bk)
 
 
 def smem_bytes(bq: int, bk: int, D: int) -> int:
-    """Shared memory of one block: the scaled query tile, the padded K and
-    the V stage, and the warps' probabilities, all float32."""
+    """Shared memory of one float32 block: the scaled query tile, the
+    padded K and the V stage, and the warps' probabilities, all float32."""
     return 4 * (bq * D + bk * (D + 4) + bk * D + bq * _KEYS)
 
 
 def tile_sizes(bq: int, bk: int, Sq: int, Sk: int, D: int):
-    """The query rows per block (a multiple of 8, at most 128) and keys per
-    stage (a multiple of 32) nearest below ``bq`` and ``bk`` that the
-    shapes need and one block's shared memory holds."""
+    """The float32 route's query rows per block (a multiple of 8, at most
+    128) and keys per stage (a multiple of 32) nearest below ``bq`` and
+    ``bk`` that the shapes need and one block's shared memory holds."""
     up = lambda n, m: -(-max(n, 1) // m) * m  # noqa: E731
     bq = max(_ROWS, min(bq, 128, up(Sq, _ROWS)) // _ROWS * _ROWS)
     bk = max(_KEYS, min(bk, up(Sk, _KEYS)) // _KEYS * _KEYS)
@@ -68,11 +93,16 @@ def prepare(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
     kf = k.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
     vf = v.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
     out = torch.empty_like(qf)
-    bq, bk = tile_sizes(bq, bk, Sq, Sk, D)
+    if q.dtype == torch.bfloat16:
+        bq, bk = tc_tiles(D)
+        smem = tc_smem_bytes(D)
+    else:
+        bq, bk = tile_sizes(bq, bk, Sq, Sk, D)
+        smem = smem_bytes(bq, bk, D)
     args = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
             code, B * Hq, Sq, Sk, D, Hq // Hkv, int(causal),
             *_cuda.window_args(window), use_cap, cap, float(scale), bq, bk,
-            smem_bytes(bq, bk, D))
+            smem)
     if B * Hq * Sq == 0:
         return lambda: out
     return functools.partial(
@@ -85,9 +115,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     scale=None, bq=128, bk=128):
     """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] → [B, Sq, Hq, D].
 
-    Head h attends K/V head h // (Hq // Hkv). ``bq`` query rows share a
-    block and ``bk`` keys are staged at a time (both shrink to what the
-    shapes need and shared memory holds); neither changes the result."""
+    Head h attends K/V head h // (Hq // Hkv). On the float32 route ``bq``
+    query rows share a block and ``bk`` keys are staged at a time (both
+    shrink to what the shapes need and shared memory holds); the bf16
+    route uses its own tile (:func:`tc_tiles`). Neither changes the
+    result."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)

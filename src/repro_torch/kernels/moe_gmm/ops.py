@@ -5,6 +5,13 @@ for CUDA tensors it launches the kernel or raises — it never falls back.
 Each call that launches adds one to ``moe_gmm.launches`` (the kernel is two
 CUDA launches on one stream: gate/up, then down); a call with no expert,
 row or model dimension launches nothing and counts nothing.
+
+The kernel has two routes, chosen by dtype. bfloat16 runs on the tensor
+cores (128 × 128 tiles, K staged 64 at a time by TMA through a four-stage
+ring: :func:`tc_smem_bytes`) and carries ``a·h`` between its launches as two
+bf16 planes, ``hi`` and ``lo``; it needs D and F to be multiples of 8
+(:func:`check_alignment`). float32 runs on the FMA units with a float32
+``a·h``.
 """
 from __future__ import annotations
 
@@ -15,14 +22,42 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
-_ARGTYPES = [_cuda.P] * 6 + [_cuda.I] * 6
+_ARGTYPES = [_cuda.P] * 6 + [_cuda.I] * 8
 ACTIVATIONS = {"silu": 0, "gelu": 1, "sq_relu": 2}
+TC_TILE = (128, 128, 64)   # bf16 route: rows, columns and depth of a tile
+TC_STAGES = 4              # and the depth of its shared-memory ring
+_ALIGN = 8                 # bf16 values in 16 bytes: TMA's row alignment
+_ATOM = 1024               # a 128-byte swizzle atom (8 rows), wgmma's
+
+
+def tc_smem_bytes(activation: str, down: bool) -> int:
+    """Shared memory of one bf16 block of the gate/up launch (``down``
+    False) or the down launch: a full and an empty mbarrier per stage, one
+    swizzle atom of slack to align the ring, and per stage an x tile (two,
+    the hi and lo planes, when down) and a weight tile for each product it
+    stages (w_gate and w_in; w_in alone for ``sq_relu``; w_out), bf16 as
+    TMA writes them."""
+    bm, bn, bk = TC_TILE
+    n_a = 2 if down else 1
+    n_b = 1 if down or activation == "sq_relu" else 2
+    return 2 * TC_STAGES * 8 + _ATOM \
+        + TC_STAGES * 2 * (n_a * bm * bk + n_b * bk * bn)
+
+
+def check_alignment(D: int, F: int) -> None:
+    """Raise unless every row of x, the weights and ``a·h`` is a whole
+    number of 16-byte units, as the bf16 route's TMA tensor maps need: D
+    and F multiples of 8."""
+    if D % _ALIGN or F % _ALIGN:
+        raise ValueError(f"moe_gmm: the bfloat16 kernel needs D and F to be "
+                         f"multiples of {_ALIGN}, got D={D}, F={F}")
 
 
 def prepare(x, w_gate, w_in, w_out, *, activation: str = "silu"):
     """Validate CUDA inputs of :func:`moe_gmm` and allocate the output and
-    the float32 ``a·h`` scratch ``[E, C, F]``; returns a function that
-    launches the kernel and returns the output."""
+    the ``a·h`` scratch (bf16: the hi and lo planes ``[2, E, C, F]``;
+    float32: ``[E, C, F]``); returns a function that launches the kernel
+    and returns the output."""
     dev, code = _cuda.float_device("moe_gmm", x)
     _cuda.check("moe_gmm", dev, x.dtype, x=x, w_gate=w_gate, w_in=w_in,
                 w_out=w_out)
@@ -36,10 +71,17 @@ def prepare(x, w_gate, w_in, w_out, *, activation: str = "silu"):
                          f"w_gate {tuple(w_gate.shape)}, w_in "
                          f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)}")
     out = torch.empty_like(x)
-    ah = torch.empty((E, C, F), dtype=torch.float32, device=dev)
+    if x.dtype == torch.bfloat16:
+        check_alignment(D, F)
+        ah = torch.empty((2, E, C, F), dtype=torch.bfloat16, device=dev)
+        smem = (tc_smem_bytes(activation, False),
+                tc_smem_bytes(activation, True))
+    else:
+        ah = torch.empty((E, C, F), dtype=torch.float32, device=dev)
+        smem = (0, 0)
     args = (x.data_ptr(), w_gate.data_ptr(), w_in.data_ptr(),
             w_out.data_ptr(), ah.data_ptr(), out.data_ptr(), code, E, C, D,
-            F, ACTIVATIONS[activation])
+            F, ACTIVATIONS[activation], *smem)
     if E * C * D == 0:
         return lambda: out
     return functools.partial(

@@ -8,7 +8,11 @@ run them there with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 The protocol kernels' outputs are integers or bools: the tolerance is
 exact equality. The LM kernels' outputs are floats, held to the
 reference's tolerances (``LM_TOL``, ``MAMBA_TOL`` of
-``repro_torch.kernels.tolerance``: those of ``tests/test_kernels.py``).
+``repro_torch.kernels.tolerance``: those of ``tests/test_kernels.py``);
+the bf16 tensor-core routes of flash attention and the expert FFN are also
+held against the plain version on float32 copies of their inputs at
+``F32_PLAIN_RTOL`` and ``F32_PLAIN_ATOL_RMS``, the limits that tell their
+split second operand from a single bf16 rounding.
 """
 import numpy as np
 import pytest
@@ -31,7 +35,8 @@ from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.kernels.tolerance import LM_TOL, MAMBA_TOL
+from repro_torch.kernels.tolerance import F32_PLAIN_ATOL_RMS, \
+    F32_PLAIN_RTOL, LM_TOL, MAMBA_TOL
 
 
 def _t(a, device="cpu"):
@@ -609,6 +614,71 @@ def test_moe_kernel_matches_plain_on_card(case, dtype):
     plain = moe_gmm_ref(*args, activation=act)
     torch.cuda.synchronize()
     _close(out, plain, LM_TOL[dtype], act)
+
+
+# the bf16 routes at shapes that cross every tile edge: flash's 128 query
+# rows and 64 keys (32 at D = 256), the expert FFN's 128 × 128 tiles and
+# 64-deep stages
+TC_FLASH_CASES = [(64, None), (64, 50.0), (128, None), (128, 50.0),
+                  (256, None), (256, 50.0)]          # D, softcap
+TC_MOE_CASE = (3, 200, 136, 264)                     # E, C, D, F
+
+
+def _held_to_f32_plain(out, plain32, what):
+    """|out − plain32| ≤ F32_PLAIN_RTOL·|plain32| + F32_PLAIN_ATOL_RMS ·
+    rms(plain32) everywhere, as chip_smoke.py holds full widths."""
+    o, p = out.float(), plain32.float()
+    lim = F32_PLAIN_RTOL * p.abs() + F32_PLAIN_ATOL_RMS * p.pow(2).mean() \
+        .sqrt()
+    err = (o - p).abs()
+    assert bool(torch.isfinite(o).all()), what
+    assert bool((err <= lim).all()), (
+        f"{what}: {int((err > lim).sum())} of {err.numel()} outside, max "
+        f"abs {float(err.max())}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D, softcap", TC_FLASH_CASES)
+def test_flash_bf16_route_holds_to_f32_plain_on_card(D, softcap):
+    """B = 1, S = 300, Hq = 12 over Hkv = 2, causal with window 100."""
+    dev = _cuda()
+    q, k, v = (_f(a, "bfloat16", dev)
+               for a in flash_inputs(1, 300, 300, 12, 2, D))
+    kw = dict(causal=True, window=100, softcap=softcap)
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    plain32 = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _held_to_f32_plain(out, plain32, f"D={D} softcap={softcap}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", list(moe_ops.ACTIVATIONS))
+def test_moe_bf16_route_holds_to_f32_plain_on_card(act):
+    dev = _cuda()
+    args = [_f(a, "bfloat16", dev) for a in moe_inputs(*TC_MOE_CASE)]
+    out = moe_ops.moe_gmm(*args, activation=act)
+    plain32 = moe_gmm_ref(*(a.float() for a in args), activation=act)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    _held_to_f32_plain(out, plain32, act)
+
+
+@pytest.mark.gpu
+def test_moe_bf16_route_refuses_misaligned_widths_on_card():
+    """F = 20 and D = 20 are not multiples of 8: ValueError, no launch;
+    the float32 route takes them."""
+    dev = _cuda()
+    before = moe_ops.moe_gmm.launches
+    for E, C, D, F in ((1, 8, 16, 20), (1, 8, 20, 16)):
+        args = [_f(a, "bfloat16", dev) for a in moe_inputs(E, C, D, F)]
+        with pytest.raises(ValueError, match="multiples of 8"):
+            moe_ops.moe_gmm(*args)
+    assert moe_ops.moe_gmm.launches == before
+    args = [_f(a, "float32", dev) for a in moe_inputs(1, 8, 16, 20)]
+    out = moe_ops.moe_gmm(*args)
+    torch.cuda.synchronize()
+    _close(out, moe_gmm_ref(*args), LM_TOL["float32"], "float32, F = 20")
 
 
 @pytest.mark.gpu
