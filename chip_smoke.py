@@ -48,21 +48,25 @@ Phases, each fatal on failure:
 8. the LM kernels on their entry points: ``flash_attention``,
    ``paged_attention``, ``moe_gmm`` and ``mamba_scan`` (``ops``) at the full
    widths of gemma2-27b (local and global attention layers, decode over a
-   paged cache of 32 sequences of up to 32,768 tokens), mixtral-8x22b (an
-   attention layer at S = 8,192, the experts at 4,096 tokens) and
-   jamba-v0.1 (a mamba layer), and at the four points of
-   ``benchmarks/bench_kernels.py``, in bfloat16: each call once with the
-   launch counts reset, then each output held against the plain version
+   paged cache of 32 sequences of up to 32,768 tokens, and of 32 of
+   32,768 each), mixtral-8x22b (an attention layer at S = 8,192, the
+   experts at 4,096 tokens) and jamba-v0.1 (a mamba layer), and at the
+   four points of ``benchmarks/bench_kernels.py``, in bfloat16: each call
+   once with the launch counts reset, then each output held against the
+   plain version
    (atol = rtol = 2e-2, mamba 5e-2) and against the plain version on
    float32 copies of its inputs (2^-7 of each value plus 1e-3 of the
-   output's RMS, ``kernels/tolerance.py``), timed beside its bound, its
-   plain version and, for the mixtral attention layer, SDPA; beside each
+   output's RMS, ``kernels/tolerance.py``), timed (after a discarded
+   round of warm-up launches: the first round after the plain versions ran
+   up to 17 % slower on the paged cases) beside its bound, its plain
+   version and, for the mixtral attention layer, SDPA; beside each
    expert FFN call the same products as cuBLAS bf16 ``torch.bmm`` are
    timed as a tensor-core yardstick (never on the path, and not the same
    function: it rounds ``a·h`` to bf16). Two more
    calls of the gemma2 local layer, with queries scaled by 2 and by 16 so
    that the logits reach the softcap's range, are held to the float32
-   plain version alone.
+   plain version alone. Each paged case prints its live partitions and
+   blocks, each scan case its blocks and warps an SM.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -113,7 +117,8 @@ BF16_FLOPS = 989.4e12        # dense BF16 on the tensor cores
 # exponentials on the SFU: 16 a clock per SM (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0), 132 SMs at
 # the 1.98 GHz boost clock
-EXP_PER_S = 132 * 16 * 1.98e9
+SMS = 132
+EXP_PER_S = SMS * 16 * 1.98e9
 OPS_PER_WORD = 10   # integer operations counted per 32-bit word loaded
 
 SLICE = tpcc.TPCCConfig(
@@ -847,6 +852,7 @@ class LMCase:
     # held to the plain version in the inputs' dtype (else only to the
     # plain version on float32 copies of the inputs)
     gate_plain: bool = True
+    note: str = ""                # the launch's shape, printed with it
 
     def bound(self):
         terms = {"bytes": self.n_bytes / HBM_BYTES_PER_S,
@@ -925,6 +931,23 @@ def paged_work(q, k_pool, page_table, kv_len, window):
     return int(vis.sum()), int(rows.sum()), entries
 
 
+def paged_launch_note(k_pool, page_table, kv_len, g, window):
+    """Launch 1's partitions and blocks, live (holding a visible token)
+    and in all, at the default partition."""
+    B, n_pages = page_table.shape
+    ps, Hkv = k_pool.shape[1], k_pool.shape[2]
+    part = paged_ops.default_part(ps)
+    lo, hi = paged_ops.live_partitions(kv_len, n_pages, ps, part, window)
+    live = int((hi - lo).sum())
+    per_part = paged_ops.blocks(1, Hkv, g, part, part)
+    n_part = paged_ops.partitions(n_pages, part)
+    warps = paged_ops.ring(k_pool.shape[3], k_pool.element_size())[0]
+    return (f"{part} pages a partition: {live} of {B * n_part} partitions "
+            f"live, {live * per_part} of "
+            f"{paged_ops.blocks(B, Hkv, g, n_pages, part)} blocks of "
+            f"{warps} warps")
+
+
 def paged_case(label, dev, q, k_pool, v_pool, page_table, kv_len, *,
                window=None, softcap=None, reps=20):
     B, Hq, D = q.shape
@@ -938,7 +961,9 @@ def paged_case(label, dev, q, k_pool, v_pool, page_table, kv_len, *,
                   flops=4.0 * D * Hq * n_keys, flop_rate=BF16_FLOPS,
                   n_bytes=2 * _nbytes(q) + 2 * n_rows * row_bytes
                   + 4 * n_entries + _nbytes(kv_len), reps=reps,
-                  plain_reps=3)
+                  plain_reps=3,
+                  note=paged_launch_note(k_pool, page_table, kv_len,
+                                         Hq // Hkv, window))
 
 
 def moe_case(label, gen, dev, E, C, D, F, *, activation="silu", x_std=1.0,
@@ -994,7 +1019,15 @@ def mamba_case(label, gen, dev, B, S, Di, N, *, dtype=torch.bfloat16,
                   kernel_kw=kw, flops=n * (6.0 * N + 3), flop_rate=F32_FLOPS,
                   n_bytes=_nbytes(dt, x, Bm, Cm, A_log, D_skip)
                   + n * x.element_size(),
-                  exps=float(n * N + Di * N), reps=reps, plain_reps=2)
+                  exps=float(n * N + Di * N), reps=reps, plain_reps=2,
+                  note=mamba_launch_note(B, Di, **kw))
+
+
+def mamba_launch_note(B, Di, bd=None, **_):
+    """Blocks, threads and warps an SM of a launch."""
+    blocks, threads = mamba_ops.launch_shape(B, Di, bd)
+    return (f"{blocks} blocks of {threads} threads, "
+            f"{blocks * threads / 32 / SMS:.2f} warps an SM")
 
 
 def lm_cases(dev, seed, reps):
@@ -1053,6 +1086,10 @@ def lm_cases(dev, seed, reps):
     cases.append(paged_case("P2 gemma2-27b decode_32k, window 4096", dev,
                             qd, kp, vp, pt, kl, window=4096, softcap=50.0,
                             reps=reps))
+    # P1 with every sequence at the full 32,768 tokens: decode_32k itself
+    cases.append(paged_case("P3 gemma2-27b decode_32k, every kv_len 32768",
+                            dev, qd, kp, vp, pt, torch.full_like(kl, 32768),
+                            softcap=50.0, reps=reps))
     # mixtral-8x22b experts: 4,096 tokens at top-2 and capacity factor
     # 1.25 give C = 1,280 rows per expert; weights scaled by fan-in^-0.5
     cases.append(moe_case("M1 mixtral-8x22b experts", gen, dev, 8, 1280,
@@ -1173,6 +1210,7 @@ def run_lm_phase(dev, seed, reps):
                     f"(max abs {abs32}, max rel {rel32})")
         launch = mod.prepare(*c.args, **c.kw, **c.kernel_kw)
         launch()
+        time_events(launch, c.reps, hold=True)   # warm-up round, not kept
         ms = time_events(launch, c.reps, hold=True)
         plain_ms = time_events(lambda: plain_fn(*c.args, **c.kw),
                                c.plain_reps)
@@ -1185,7 +1223,9 @@ def run_lm_phase(dev, seed, reps):
             yard_ms = time_events(c.yardstick, c.reps, hold=True)
         bound_ms, bound_by = c.bound()
         print(f"{c.kernel} [{c.label}]: {ms:.4f} ms/launch (CUDA events, GPU "
-              f"held, {c.reps} launches), plain {plain_ms:.4f} ms, bound "
+              f"held, {c.reps} launches"
+              + (f"; {c.note}" if c.note else "")
+              + f"), plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {c.flops:.4g} flop, "
               f"{c.n_bytes:.4g} B, {c.exps:.4g} exp)"
               + (f", SDPA {lib_ms:.4f} ms (max abs {lib_err:.3g} from the "
@@ -1210,7 +1250,8 @@ def run_lm_phase(dev, seed, reps):
             atol_f32_plain=atol32, rtol_f32_plain=rtol32,
             library_max_abs_diff=lib_err, atol=tol, rtol=tol,
             match=(ok or not c.gate_plain) and ok32, flops=c.flops,
-            bytes=c.n_bytes, exps=c.exps, reps=c.reps))
+            bytes=c.n_bytes, exps=c.exps, reps=c.reps,
+            launch=c.note))
     del outs, cases
     torch.cuda.empty_cache()
     entries = []

@@ -602,6 +602,81 @@ def test_paged_kernel_own_contract_on_card(dtype):
     _close(out[0::2], plain[0::2], LM_TOL[dtype], "unmapped page dropped")
 
 
+def paged_partition_case(g, ps, seed=4, Hkv=2, D=32, P=96):
+    """Pools of P pages of ps tokens and a table of 4 sequences, 24 pages
+    wide, made from a seed: sequence 0 long (22.5 pages), the others short
+    (1 token, 1.5 and 3 pages and a token). Every page below kv_len is
+    mapped, each sequence to its own pages, so the plain version holds the
+    TPU kernel's semantics."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(4, Hkv * g, D).astype(np.float32)
+    kp = rng.randn(P, ps, Hkv, D).astype(np.float32)
+    vp = rng.randn(P, ps, Hkv, D).astype(np.float32)
+    pt = rng.permutation(P)[:4 * 24].reshape(4, 24).astype(np.int32)
+    kv_len = np.array([22 * ps + ps // 2, 1, ps + ps // 2, 3 * ps + 1],
+                      np.int32)
+    pt[np.arange(24)[None] * ps >= kv_len[:, None]] = -1
+    return q, kp, vp, pt, kv_len
+
+
+# page sizes whose partitions (paged_ops.default_part: 512 tokens' worth)
+# hold one page, two, three (a partition ends mid-tile) and 128, more than
+# the table's 24 (one partition a sequence: launch 1 writes the output)
+PAGED_PAGE_SIZES = [512, 256, 170, 4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("g", [1, 2, 8, 12])
+def test_paged_kernel_partitions_on_card(g, dtype):
+    """One long sequence (23 pages) among short ones, at page sizes that
+    give partitions of 1, 2, 3 and 128 pages; g = 12 takes two query
+    groups. Without a window, and with a window of 5 pages and a token
+    (sequence 0 sees from mid-page 17 on: mid-partition at every size),
+    softcap 25 on the second: every page size equals the plain version."""
+    dev = _cuda()
+    for ps in PAGED_PAGE_SIZES:
+        q, kp, vp, pt, kl = paged_partition_case(g, ps)
+        q, kp, vp = (_f(a, dtype, dev) for a in (q, kp, vp))
+        pt, kl = torch.from_numpy(pt).to(dev), torch.from_numpy(kl).to(dev)
+        for kw in (dict(), dict(window=5 * ps + 1, softcap=25.0)):
+            out = paged_ops.paged_attention(q, kp, vp, pt, kl, **kw)
+            plain = paged_attention_ref(q, kp, vp, pt, kl, **kw)
+            torch.cuda.synchronize()
+            _close(out, plain, LM_TOL[dtype],
+                   f"ps={ps} ({paged_ops.default_part(ps)} pages a "
+                   f"partition) {kw}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_paged_kernel_unmapped_page_mid_partition_on_card(dtype):
+    """Sequence 0 (23 pages) has page 5 unmapped below kv_len: at 2 pages
+    a partition (ps = 256), the second half of partition 2; sequence 3
+    (pages 0-3) has pages 2 and 3 unmapped: all of partition 1 there. At
+    partitions of 1, 2 and 3 pages each equals the plain version on its
+    table with those pages dropped and kv_len reduced to the keys left
+    (decode attention does not depend on the order of the keys); the short
+    sequences are untouched."""
+    dev = _cuda()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    for ps in PAGED_PAGE_SIZES[:3]:
+        q, kp, vp, pt, kl = paged_partition_case(2, ps)
+        dropped, kl_dropped = pt.copy(), kl.copy()
+        pt[0, 5] = -1
+        dropped[0] = np.concatenate([pt[0, :5], pt[0, 6:], [-1]])
+        kl_dropped[0] -= ps
+        pt[3, 2:4] = -1
+        dropped[3, 2:] = -1
+        kl_dropped[3] = 2 * ps
+        q, kp, vp = (_f(a, dtype, dev) for a in (q, kp, vp))
+        out = paged_ops.paged_attention(q, kp, vp, t(pt), t(kl))
+        plain = paged_attention_ref(q, kp, vp, t(dropped), t(kl_dropped))
+        torch.cuda.synchronize()
+        _close(out, plain, LM_TOL[dtype],
+               f"ps={ps} ({paged_ops.default_part(ps)} pages a partition)")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", LM_DTYPES)
 @pytest.mark.parametrize("case", MOE_CASES)
@@ -696,6 +771,31 @@ def test_mamba_kernel_matches_plain_on_card(case, dtype):
     torch.cuda.synchronize()
     assert out.shape == (B, S, Di)
     _close(out, plain, MAMBA_TOL[dtype], f"S={S} chunk={chunk}")
+
+
+# (B, S, Di, N, bd, chunk): 32 and 64 states (the second with S not a
+# multiple of the chunk), Di = 40 over blocks of 32 or 16 channels (the last
+# partial), B·Di = 8 (one partial block), and Di = 13 with 5 states (the
+# wrapper pads channels and states)
+MAMBA_EDGE_CASES = [(2, 40, 24, 32, 16, 16), (1, 50, 16, 64, 16, 32),
+                    (2, 37, 40, 16, 32, 16), (1, 20, 8, 8, None, 16),
+                    (2, 21, 13, 5, None, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", MAMBA_EDGE_CASES)
+def test_mamba_kernel_edges_on_card(case, dtype):
+    dev = _cuda()
+    B, S, Di, N, bd, chunk = case
+    dt, x, Bm, Cm, A_log, D_skip = mamba_inputs(B, S, Di, N)
+    args = [_f(a, dtype, dev) for a in (dt, x, Bm, Cm)] \
+        + [torch.from_numpy(A_log).to(dev), torch.from_numpy(D_skip).to(dev)]
+    plain = mamba_scan_ref(*args)
+    out = mamba_ops.mamba_scan(*args, bd=bd, chunk=chunk)
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, Di) and out.dtype == args[1].dtype
+    _close(out, plain, MAMBA_TOL[dtype], f"bd={bd} chunk={chunk}")
 
 
 @pytest.mark.gpu
