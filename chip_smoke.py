@@ -17,7 +17,10 @@ Phases, each fatal on failure:
    items, 3,000 customers per district, 60 threads) on the card;
 3. run ``batched_probe`` and ``fused_commit`` and their plain versions on
    clones of one real new-order round's inputs and of a constructed
-   adversarial case: outputs and state planes must be bit-identical;
+   adversarial case (with write slots out of range, one of them granted
+   beside a request of its priority): outputs and state planes must be
+   bit-identical, and the commit wrapper must not wait on the device (a
+   call under ``torch.cuda.set_sync_debug_mode("error")``);
 4. new-order path: run ``--rounds`` new-order rounds through the kernels
    (key-addressed, ``batched_probe`` and ``fused_commit`` on) and the same
    inputs from a cloned start state through the plain path: per-round
@@ -42,9 +45,12 @@ Phases, each fatal on failure:
    snapshot that hides the newest write of one rewritten record, are held
    the same way: some reads of (c) must be served from the old ring and
    some from the overflow ring;
-7. time the rounds, each kernel (CUDA events) beside its bound and its
-   plain version, and profile a few rounds of each path for the device
-   breakdown;
+7. time the rounds, each kernel (CUDA events) beside its bound, its
+   plain version and the launch floor (an empty kernel, and the commit
+   kernel's cluster with no barrier and with its three), and profile a few
+   rounds of each path for the device breakdown, each protocol kernel's
+   CUDA launches a round (a new-order round must launch each once) and
+   the host synchronisations a round;
 8. the LM kernels on their entry points: ``flash_attention``,
    ``paged_attention``, ``moe_gmm`` and ``mamba_scan`` (``ops``) at the full
    widths of gemma2-27b (local and global attention layers, decode over a
@@ -75,6 +81,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import re
@@ -327,19 +334,21 @@ def hash_probe_work(args, kw, out):
 def commit_work(args, out):
     """Bytes the fused commit must move on these inputs: the request and
     transaction inputs, the header, counter and ring victim of every active
-    request, the installs it writes, the vector slots and the outputs."""
+    request, the headers and payload rows of every install (the new row
+    read, the current row read, the ring and current rows written), the
+    vector slots and the outputs."""
     (table, vec, slots, exp, prio, act, txn, new_hdr, new_data, txn_ok,
      txn_slot, cts, ext) = args
-    Q, T = slots.shape[0], txn_ok.shape[0]
+    Q, T, W = slots.shape[0], txn_ok.shape[0], new_data.shape[1]
     n_act = int(act.sum())
     n_inst = int(out.do_install.sum())
-    n_bytes = Q * 29 + T * 13 + n_act * 20 + n_inst * 20 + T * 8 \
-        + Q * 2 + T * 5
-    words = Q * 7 + n_act * 5 + n_inst * 5 + T * 5
+    n_bytes = Q * 29 + T * 13 + n_act * 20 + n_inst * (20 + 16 * W) \
+        + T * 8 + Q * 2 + T * 5
+    words = Q * 7 + n_act * 5 + n_inst * (5 + 4 * W) + T * 5
     # random accesses, one 32-byte sector each: header, counter and ring
-    # victim per active request, three writes per install, a vector slot
-    # per transaction
-    sectors = 3 * n_act + 3 * n_inst + T
+    # victim per active request, three header writes and three payload
+    # rows per install, a vector slot per transaction
+    sectors = 3 * n_act + n_inst * (3 + 3 * -(-W * 4 // 32)) + T
     return n_bytes, words, sectors
 
 
@@ -465,7 +474,8 @@ def adversarial_commit(args):
     """The real round's requests made hostile, sparsely enough that some
     transactions still commit: hot duplicate slots across transactions,
     stale expectations, locked targets, immovable ring victims, padding
-    lanes with garbage ids, remote failures and gated-off transactions."""
+    lanes with garbage ids, remote failures, gated-off transactions, and
+    write slots out of range (F1's lanes, :func:`f1_lanes`)."""
     (table, vec, slots, exp, prio, act, txn, new_hdr, new_data, txn_ok,
      txn_slot, cts, ext) = clone(args)
     Q, T = slots.shape[0], txn_ok.shape[0]
@@ -489,8 +499,37 @@ def adversarial_commit(args):
     slots[pad] = -7
     ext[1::4] = 1
     txn_ok[2::9] = False
+    R = table.n_records
+    for lane, slot, gathered in f1_lanes(WS, R):
+        act[lane], txn[lane], slots[lane] = True, lane // WS, slot
+        exp[lane] = table.cur_hdr[gathered]
+    # the record R-1 of the same-priority pair: unlocked, its victims moved
+    table.cur_hdr[R - 1, 0] &= ~1
+    table.old_hdr[R - 1, :, 0] |= 4
+    exp[5 * WS + 1] = exp[5 * WS + 2] = table.cur_hdr[R - 1]
     return (table, vec, slots, exp, prio, act, txn, new_hdr, new_data,
             txn_ok, txn_slot, cts, ext)
+
+
+def f1_lanes(WS, R):
+    """``(lane, slot, gathered record)`` of the requests the adversarial
+    commit aims out of range: transaction 5 writes record R-1 (lane 5·WS+1)
+    and slot R+5 (lane 5·WS+2), whose bid is dropped but whose won test
+    reads record R-1 at the same priority, so it is granted and writes
+    nothing; transaction 11 writes slot -R-1 (record 0 for its gathers,
+    dropped by its scatters), transaction 17 slot R alone."""
+    return ((5 * WS + 1, R - 1, R - 1), (5 * WS + 2, R + 5, R - 1),
+            (11 * WS + 3, -R - 1, 0), (17 * WS + 4, R, R - 1))
+
+
+def commit_without_sync(args):
+    """``fused_commit(*args)`` with every synchronising torch op made to
+    raise: the wrapper must not wait on the device."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return commit_ops.fused_commit(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def commit_lattice(args, out):
@@ -533,7 +572,7 @@ def time_kernels(p_args, p_kw, c_args, n_time=200):
             t.index_copy_(0, touched, s)
         base[1].copy_(saved[5])
 
-    commit_launch = commit_ops.prepare(*base[:8], *base[9:])
+    commit_launch = commit_ops.prepare(*base)
     restore()
     for _ in range(10):
         commit_launch()
@@ -553,6 +592,29 @@ def time_kernels(p_args, p_kw, c_args, n_time=200):
                               probe_work_),
             "fused_commit": (commit_ms, commit_host_ms, commit_plain_ms,
                              commit_work_)}
+
+
+def time_launch_floor(n_time=200):
+    """``{label: ms}``: the launch floor timed as the kernels are (CUDA
+    events, GPU held while queued), from ``fused_commit``'s library: an
+    empty kernel of one block, and the commit kernel's cluster shape
+    passing no barrier and as many as the kernel does."""
+    lib = _build.load("fused_commit")
+    fn = lib.fused_commit_floor_launch
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    floors = {"empty kernel": -1, "empty cluster": 0,
+              f"cluster, {lib.fused_commit_barriers()} barriers": 1}
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, barriers in floors.items():
+        def launch():
+            check(fn(barriers, stream) == 0,
+                  f"launch floor ({label}) failed")
+        for _ in range(10):
+            launch()
+        out[label] = time_events(launch, n_time, hold=True)
+    torch.cuda.synchronize()
+    return out
 
 
 def time_hash_probe(args, kw, n_time=200):
@@ -1271,10 +1333,18 @@ def run_lm_phase(dev, seed, reps):
 
 
 # --------------------------------------------------------- profiling ----
+# host synchronisations in a trace: the runtime calls that wait for the
+# device, and the device's copies to the host (each one waited for)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
 def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
-    """Device time by kernel over ``n_rounds`` rounds of ``driver`` and the
-    idle share: the device-side events of the trace (kernels, copies,
-    fills), which run one at a time on the one stream, summed by name."""
+    """Device time by kernel over ``n_rounds`` rounds of ``driver``, the
+    idle share, and the host's waits: the device-side events of the trace
+    (kernels, copies, fills), which run one at a time on the one stream,
+    summed by name, and the counts of ``SYNC_CALLS`` runtime calls and of
+    device-to-host copies (the two ``torch.cuda.synchronize`` calls around
+    the rounds excluded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1285,26 +1355,41 @@ def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
+    syncs = {"sync calls": -2, "DtoH copies": 0}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+            syncs["DtoH copies"] += "DtoH" in e.name
+        else:
+            syncs["sync calls"] += e.name in SYNC_CALLS
     rows = sorted(((k, t, n) for k, (t, n) in by_name.items()),
                   key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    return wall_us, busy_us, rows
+    return wall_us, busy_us, rows, syncs
 
 
-def print_profile(label, n_rounds, wall_us, busy_us, rows):
+# the port's protocol kernels as the trace names them
+OURS = ("batched_probe_kernel", "hash_probe_kernel", "fused_commit_kernel")
+
+
+def print_profile(label, n_rounds, wall_us, busy_us, rows, syncs):
+    """The breakdown, and per round the host synchronisations and each of
+    ``OURS``' CUDA launches; returns the latter two."""
     print(f"profile, {label}: {n_rounds} rounds, wall {wall_us / 1e3:.3f} "
           f"ms, device busy {busy_us / 1e3:.3f} ms (idle share "
           f"{1 - busy_us / wall_us:.3f})")
-    ours = ("batched_probe_kernel", "hash_probe_kernel", "reset_kernel",
-            "bid_kernel", "grant_kernel", "apply_kernel")
     shown = rows[:14] + [r for r in rows[14:]
-                         if any(k in r[0] for k in ours)]
+                         if any(k in r[0] for k in OURS)]
     for key, t_us, count in shown:
         print(f"  {t_us / 1e3:9.3f} ms  {count:6d}x  {key[:70]}")
+    launches = {k: sum(n for name, _, n in rows if k in name) / n_rounds
+                for k in OURS}
+    per_round = {k: v / n_rounds for k, v in syncs.items()}
+    print(f"  per round: CUDA launches {launches}; host synchronisations "
+          f"{per_round} ({', '.join(SYNC_CALLS)} calls; device-to-host "
+          f"copies)")
+    return launches, per_round
 
 
 def print_round_times(label, rounds, commits, what):
@@ -1405,17 +1490,23 @@ def main(argv=None):
         report["batched_probe"] = max(report.get("batched_probe", 0), err)
     for label, ca in (("real", c_args), ("adversarial",
                                          adversarial_commit(c_args))):
-        ker = commit_ops.fused_commit(*clone(ca))
+        ker = commit_without_sync(clone(ca))
         plain = commit_ref.fused_commit_ref(*clone(ca))
         torch.cuda.synchronize()
         err = same(flat_commit(ker), flat_commit(plain),
                    f"fused_commit ({label})")
         lat = commit_lattice(ca, ker)
         print(f"fused_commit {label}: Q={ca[2].shape[0]} active "
-              f"{int(ca[5].sum())} {lat}: bit-identical")
+              f"{int(ca[5].sum())} {lat}: bit-identical, no host sync")
         if label == "adversarial":
             check(all(lat.values()), f"adversarial commit case does not "
                                      f"reach every outcome: {lat}")
+            WS = ca[2].shape[0] // ca[9].shape[0]
+            f1 = [(slot, bool(ker.granted[lane]), bool(ker.do_install[lane]))
+                  for lane, slot, _ in f1_lanes(WS, ca[0].n_records)]
+            print(f"fused_commit F1 lanes (slot, granted, do_install): {f1}")
+            check(f1[1][1], "the out-of-range lane of the winning priority "
+                            "was not granted")
         report["fused_commit"] = max(report.get("fused_commit", 0), err)
 
     # ---- 4. new-order path: kernels vs the plain path -----------------------
@@ -1559,11 +1650,16 @@ def main(argv=None):
 
     # ---- 7. timings ---------------------------------------------------------
     timed = time_kernels(p_args, p_kw, c_args)
+    floors = time_launch_floor()
+    print("launch floor (CUDA events, GPU held while queued): " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in floors.items()))
     kernels = [kernel_record(
         n, mix_launches[n], {"neworder": no_launches[n],
                              "mix": mix_launches[n]}, report[n], timed[n],
         " (one new-order round's inputs)")
         for n in ("batched_probe", "fused_commit")]
+    for k in kernels:
+        k["launch_floor_ms"] = floors
     kernels.append(kernel_record(
         "hash_probe", probe_launches["hash_probe"],
         {"mix_readonly_keys": probe_launches["hash_probe"]},
@@ -1578,12 +1674,24 @@ def main(argv=None):
 
     # ---- breakdown of a few more rounds (device time by kernel) -------------
     if args.profile_rounds:
-        print_profile("new-order", args.profile_rounds, *profile_rounds(
-            tpcc.run_neworder_rounds, cfg, lay, st_k, oracle,
-            stream(args.seed + 2), args.profile_rounds))
-        print_profile("mix", args.profile_rounds, *profile_rounds(
-            tpcc.run_mixed_rounds, cfg, lay, st_pr, oracle,
-            mix_stream(args.seed + 5), args.profile_rounds))
+        per_round = {}
+        for path, driver, st_, draw in (
+                ("new-order", tpcc.run_neworder_rounds, st_k,
+                 stream(args.seed + 2)),
+                ("mix", tpcc.run_mixed_rounds, st_pr,
+                 mix_stream(args.seed + 5))):
+            per_round[path] = print_profile(
+                path, args.profile_rounds, *profile_rounds(
+                    driver, cfg, lay, st_, oracle, draw,
+                    args.profile_rounds))
+        no_cuda = per_round["new-order"][0]
+        check(no_cuda["fused_commit_kernel"] == 1.0
+              and no_cuda["batched_probe_kernel"] == 1.0,
+              f"a new-order round did not launch each kernel once: "
+              f"{no_cuda}")
+        for k in kernels[:2]:
+            k["per_round"] = {p: dict(cuda_launches=l, host_syncs=h)
+                              for p, (l, h) in per_round.items()}
 
     # ---- 8. the LM kernels on their entry points -----------------------------
     t0 = time.perf_counter()

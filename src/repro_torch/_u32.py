@@ -11,8 +11,10 @@ reinterpret the same storage as ``uint32_t``.
 
 **Index semantics.** The port reproduces what JAX does with a bad index
 instead of raising as PyTorch would: a gather wraps negative indices once and
-then clamps into range (:func:`gidx`); a ``mode="drop"`` scatter is written
-only at the rows its mask selects (:func:`rows_of`).
+then clamps into range (:func:`gidx`); a scatter wraps negative indices once
+and then **drops** what is still out of range, so its index goes to a sink
+row ``n`` (:func:`sidx`) or the scatter is written only at the rows its mask
+selects (:func:`rows_of`). A clamped index never feeds a scatter.
 """
 from __future__ import annotations
 
@@ -56,6 +58,14 @@ def gidx(idx: torch.Tensor, n: int) -> torch.Tensor:
     """JAX gather semantics: negative indices wrap once, then clamp."""
     idx = idx.to(torch.int64)
     return torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+
+
+def sidx(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX scatter semantics: negative indices wrap once; an index still
+    out of range becomes ``n``, a sink row the caller drops."""
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    return torch.where((idx >= 0) & (idx < n), idx, n)
 
 
 def rows_of(mask: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch._u32 import gidx, rows_of, to_i32, u64
+from repro_torch._u32 import gidx, rows_of, sidx, to_i32, u64
 from repro_torch.core import header as hdr_ops
 
 NO_WINNER = 0xFFFFFFFF
@@ -34,10 +34,14 @@ def arbitrate(hdrs, slots, expected, prio, active) -> CasResult:
     granted slot in place.
     """
     n_rec = hdrs.shape[0]
-    safe = gidx(torch.where(active, slots, 0), n_rec)
+    # gathers clamp (gidx); the scatters drop an index out of range once
+    # negatives wrap: it goes to the sink row n_rec (sidx)
+    slots = torch.where(active, slots, 0)
+    safe, sink = gidx(slots, n_rec), sidx(slots, n_rec)
     mprio = torch.where(active, u64(prio), NO_WINNER)
-    arb = torch.full((n_rec,), NO_WINNER, dtype=torch.int64, device=hdrs.device)
-    arb.scatter_reduce_(0, safe, mprio, "amin")
+    arb = torch.full((n_rec + 1,), NO_WINNER, dtype=torch.int64,
+                     device=hdrs.device)
+    arb.scatter_reduce_(0, sink, mprio, "amin")
     won = active & (arb[safe] == mprio) & (mprio != NO_WINNER)
 
     installed = hdrs[safe]
@@ -46,17 +50,19 @@ def arbitrate(hdrs, slots, expected, prio, active) -> CasResult:
 
     # scatter-max of (meta | LOCKED): sets the bit where granted, rewrites
     # the unchanged word elsewhere
-    meta = u64(hdrs[:, hdr_ops.META])
+    meta = torch.cat([u64(hdrs[:, hdr_ops.META]), arb.new_zeros(1)])
     lock_or = torch.where(granted, hdr_ops.LOCKED_BIT, 0)
-    meta.scatter_reduce_(0, safe, u64(installed[:, hdr_ops.META]) | lock_or,
+    meta.scatter_reduce_(0, sink, u64(installed[:, hdr_ops.META]) | lock_or,
                          "amax")
-    hdrs[:, hdr_ops.META] = to_i32(meta)
+    hdrs[:, hdr_ops.META] = to_i32(meta[:n_rec])
     return CasResult(granted=granted, new_hdr=hdrs)
 
 
 def release(hdrs, slots, mask):
-    """Clear the lock bits of the masked slots (the abort path) in place."""
-    rows = rows_of(mask)
-    s = gidx(slots[rows], hdrs.shape[0])
+    """Clear the lock bits of the masked slots (the abort path) in place;
+    a slot out of range once negatives wrap is dropped."""
+    s = sidx(slots, hdrs.shape[0])
+    rows = rows_of(mask & (s < hdrs.shape[0]))
+    s = s[rows]
     hdrs[s, hdr_ops.META] = hdrs[s, hdr_ops.META] & ~hdr_ops.LOCKED_BIT
     return hdrs

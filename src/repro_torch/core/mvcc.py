@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch._u32 import gidx, rows_of
+from repro_torch._u32 import gidx, rows_of, sidx
 from repro_torch.core import header as hdr_ops
 
 
@@ -187,11 +187,15 @@ class InstallResult(NamedTuple):
 def install(tbl: VersionedTable, slots, new_hdr, new_data, mask) -> InstallResult:
     """Install write-set versions in place (§5.1 "Version Management").
 
-    Masked slots are held under lock, hence pairwise distinct. Per record:
-    the ring slot at ``next_write mod K`` must be moved (else
+    Per record: the ring slot at ``next_write mod K`` must be moved (else
     ``installed=False``); the current version moves there with lock and
     moved cleared; the new version becomes current with its lock cleared;
-    ``next_write`` advances. Updates ``tbl`` in place.
+    ``next_write`` advances. The gathers clamp a slot out of range; the
+    scatters drop it (once negatives wrap). Masked lanes that name one slot
+    (one transaction writing a record twice, or two transactions of one
+    priority) all move the same current version and all advance
+    ``next_write``; the highest such lane writes the new current version,
+    as the reference's in-order scatter does. Updates ``tbl`` in place.
     """
     R, K = tbl.n_records, tbl.n_old
     safe = gidx(torch.where(mask, slots, 0), R)
@@ -199,15 +203,20 @@ def install(tbl: VersionedTable, slots, new_hdr, new_data, mask) -> InstallResul
     reusable = hdr_ops.is_moved(tbl.old_hdr[safe, wpos])
     do = mask & reusable
 
-    rows = rows_of(do)
-    s, w = safe[rows], wpos[rows]
-    cur_h, cur_d = tbl.cur_hdr[s], tbl.cur_data[s]
-    tbl.old_hdr[s, w] = hdr_ops.with_moved(hdr_ops.with_lock(cur_h, False),
-                                           False)
-    tbl.old_data[s, w] = cur_d
-    tbl.cur_hdr[s] = hdr_ops.with_lock(new_hdr[rows], False)
-    tbl.cur_data[s] = new_data[rows]
+    idx = sidx(torch.where(do, slots, R), R)
+    rows = rows_of(idx < R)
+    s, w, g = idx[rows], wpos[rows], safe[rows]
+    tbl.old_hdr[s, w] = hdr_ops.with_moved(
+        hdr_ops.with_lock(tbl.cur_hdr[g], False), False)
+    tbl.old_data[s, w] = tbl.cur_data[g]
     tbl.next_write.index_add_(0, s, torch.ones_like(s, dtype=torch.int32))
+    # every lane of a slot writes the highest lane's version (the last of
+    # its run in a stable sort), so the duplicate writes agree; the slots
+    # sort as int32 (R < 2**31), half the radix passes of int64
+    so, order = torch.sort(s.to(torch.int32), stable=True)
+    top = rows[order[torch.searchsorted(so, so, right=True) - 1]]
+    tbl.cur_hdr[so.long()] = hdr_ops.with_lock(new_hdr[top], False)
+    tbl.cur_data[so.long()] = new_data[top]
     return InstallResult(table=tbl, installed=do)
 
 

@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch._u32 import gidx, to_i32, u64
+from repro_torch._u32 import gidx, sidx, to_i32, u64
 from repro_torch.core import cas, hashtable as ht, header as hdr_ops, mvcc
 from repro_torch.core.mvcc import VersionedTable
 from repro_torch.core.tsoracle import VectorOracle, VectorState
@@ -158,11 +158,9 @@ def commit_write_sets(table: VersionedTable, req_slots, req_expected,
     effective = granted & hdr_ops.is_moved(table.old_hdr[safe, wpos])
 
     # scatter-add with JAX's drop of out-of-range ids: slot n_txn is a sink
-    t = txn_of_req.to(torch.int64)
-    t = torch.where(t < 0, t + n_txn, t)
-    t = torch.where((t >= 0) & (t < n_txn), t, n_txn)
     fails = torch.zeros((n_txn + 1,), dtype=torch.int32, device=txn_ok.device)
-    fails.index_add_(0, t, (req_active & ~effective).to(torch.int32))
+    fails.index_add_(0, sidx(txn_of_req, n_txn),
+                     (req_active & ~effective).to(torch.int32))
     fails = fails[:n_txn]
     total = fails if ext_fails is None else fails + ext_fails
     committed = (total == 0) & txn_ok

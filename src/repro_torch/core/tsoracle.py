@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch._u32 import to_i32, u64
+from repro_torch._u32 import sidx, to_i32, u64
 
 
 class VectorState(NamedTuple):
@@ -44,13 +44,14 @@ class VectorOracle:
 
     def make_visible(self, state: VectorState, tid, cts, committed=None):
         """Scatter-max of the commit timestamps into the threads' slots,
-        masked to the committed transactions; updates ``state.vec`` in
-        place and returns ``state``."""
+        masked to the committed transactions; a slot out of range once
+        negatives wrap is dropped. Updates ``state.vec`` in place and
+        returns ``state``."""
         cts = u64(cts)
         if committed is not None:
             cts = torch.where(committed, cts, 0)
-        slot = self.slot_of_thread(tid).to(torch.int64)
-        vec = u64(state.vec)
-        vec.scatter_reduce_(0, slot, cts, "amax")
-        state.vec.copy_(to_i32(vec))
+        n = state.vec.shape[0]
+        vec = torch.cat([u64(state.vec), cts.new_zeros(1)])   # n is a sink
+        vec.scatter_reduce_(0, sidx(self.slot_of_thread(tid), n), cts, "amax")
+        state.vec.copy_(to_i32(vec[:n]))
         return state

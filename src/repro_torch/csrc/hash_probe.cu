@@ -11,10 +11,10 @@
 // max_probes buckets, stop at the key or an empty bucket, a value < 0 is an
 // invalidated entry), then the newest usable version of the hit record:
 // current header, old ring newest-first (skipping the never-written
-// sentinel), overflow ring. Both steps are probe_common.cuh's, shared with
-// batched_probe.cu. The contract differs from batched_probe on a miss: a
-// missing or invalidated key gives slot -1, found 0 and src = pos = 0, and
-// its thread loads no header at all.
+// sentinel), overflow ring. Both steps are probe_common.cuh's. The
+// contract differs from batched_probe on a miss: a missing or invalidated
+// key gives slot -1, found 0 and src = pos = 0, and its thread loads no
+// header at all.
 //
 // Bound: random 32-byte sectors — the probe chain's keys, one value per hit,
 // and per hit the headers the resolution examines, the ring counters and a

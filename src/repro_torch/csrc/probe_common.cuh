@@ -1,7 +1,9 @@
-// Device functions shared by the probe kernels (batched_probe.cu,
-// hash_probe.cu): the §5.2 directory walk and the §5.1 version location.
-// They mirror _dir_probe and _resolve_versions of
-// src/repro/kernels/hash_probe/kernel.py, which both TPU kernels share.
+// Device code of the probe kernels: the usability test, ring positions and
+// header bits both use (batched_probe.cu, hash_probe.cu), and
+// hash_probe.cu's one-thread §5.2 directory walk and §5.1 version location,
+// which mirror _dir_probe and _resolve_versions of
+// src/repro/kernels/hash_probe/kernel.py (batched_probe.cu runs both steps
+// with a tile of threads).
 #pragma once
 
 #include <cstdint>
@@ -14,9 +16,12 @@ constexpr uint32_t kMoved = 1u << 2;
 constexpr int kThreadShift = 3;
 
 // A version is usable iff cts <= T_R[min(tid, n-1)] and it is not deleted.
+// ts (global memory, read-only during a launch) is read through the
+// read-only cache.
 __device__ __forceinline__ bool usable(uint2 h, const uint32_t* ts, int n_ts) {
   uint32_t tid = h.x >> kThreadShift;
-  uint32_t t = ts[tid < (uint32_t)(n_ts - 1) ? tid : (uint32_t)(n_ts - 1)];
+  uint32_t t =
+      __ldg(&ts[tid < (uint32_t)(n_ts - 1) ? tid : (uint32_t)(n_ts - 1)]);
   return h.y <= t && (h.x & kDeleted) == 0;
 }
 

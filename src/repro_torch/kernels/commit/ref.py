@@ -8,7 +8,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch._u32 import to_i32, u64
+from repro_torch._u32 import sidx, to_i32, u64
 from repro_torch.core import si
 from repro_torch.core.mvcc import VersionedTable
 
@@ -28,11 +28,9 @@ def make_visible(vec, txn_slot, cts, committed):
     """``vec[txn_slot] = max(vec[txn_slot], committed ? cts : 0)`` in place;
     an index out of range once negatives wrap is dropped."""
     n = vec.shape[0]
-    slot = txn_slot.to(torch.int64)
-    slot = torch.where(slot < 0, slot + n, slot)
-    slot = torch.where((slot >= 0) & (slot < n), slot, n)   # n is a sink
     wide = torch.cat([u64(vec), vec.new_zeros((1,), dtype=torch.int64)])
-    wide.scatter_reduce_(0, slot, torch.where(committed, u64(cts), 0), "amax")
+    wide.scatter_reduce_(0, sidx(txn_slot, n),    # n is a sink
+                         torch.where(committed, u64(cts), 0), "amax")
     vec.copy_(to_i32(wide[:n]))
     return vec
 

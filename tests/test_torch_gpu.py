@@ -24,6 +24,7 @@ from repro_torch.core.tsoracle import VectorOracle
 from repro_torch.db import tpcc, workload
 from repro_torch.kernels.commit import ops as commit_ops
 from repro_torch.kernels.commit.ref import fused_commit_ref
+from repro_torch.kernels._cuda import MAX_SMEM
 from repro_torch.kernels.hash_probe import ops as probe_ops
 from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
     hash_probe_ref
@@ -133,6 +134,49 @@ def probe_case(seed, R=48, n_buckets=128, slot_oob=False):
             fallback, lane_keys, key_mask)
 
 
+def probe_chain_case(seed, n_ts=4, R=300, n_buckets=256, n_keys=230):
+    """A directory at load 0.9, so that probe chains run past one tile's
+    window of 16 buckets, over ``_probe_table`` rows with a vector of ``n_ts``
+    words (beyond the kernel's shared buffer at 9,000): hits deep in their
+    chains, absent keys, invalidated entries, keys near 2**32, reads that
+    find nothing, and slot lanes in and out of range. Returns what
+    :func:`probe_case` does; its lanes' probe distances are in
+    ``probe_distance``."""
+    rng = np.random.RandomState(seed + 200)
+    tbl, ts = _probe_table(seed, R=R, n_ts=n_ts)
+    keys = np.unique(rng.randint(1, 1 << 31, 2 * n_keys))[:n_keys]
+    keys = rng.permutation(keys).astype(np.uint32) * 2
+    keys[:2] = [0xFFFFFFFE, 0x80000000]
+    d, placed = tht.insert(tht.init(n_buckets, device="cpu"), _t(keys),
+                           _t(rng.randint(0, R, n_keys).astype(np.int32)),
+                           max_probes=n_buckets)
+    assert (placed >= 0).all()
+    d.vals[placed[rng.rand(n_keys) < 0.1].long()] = -1   # invalidated
+    Q = 3 * R
+    lane_keys = keys[rng.randint(0, n_keys, Q)]
+    lane_keys[rng.rand(Q) < 0.15] = np.uint32(0xDEADBEEF)        # absent
+    lane_keys[3] = np.uint32(0xFFFFFFFF)                         # +1 wraps
+    key_mask = rng.rand(Q) < 0.7
+    fallback = rng.randint(0, R, Q).astype(np.int32)
+    fallback[[5, 6, 7, 8]] = [-2, R + 3, -R - 4, 3]
+    key_mask[[5, 6, 7, 8]] = False
+    return (d.keys.numpy().view(np.uint32), d.vals.numpy(), tbl, ts,
+            fallback, lane_keys, key_mask)
+
+
+def probe_distance(case):
+    """Buckets each keyed lane's walk reads before its key or an empty
+    bucket (the chain length the kernel's windows must cover)."""
+    dk, dv, tbl, ts, fb, lk, km = case
+    B = dk.shape[0]
+    base = tht._hash(_t(lk), B).numpy()
+    dist = np.full(lk.shape, B)
+    for p in range(B - 1, -1, -1):
+        k = dk[(base + p) % B]
+        dist = np.where((k == lk + np.uint32(1)) | (k == 0), p + 1, dist)
+    return np.where(km, dist, 0)
+
+
 def port_table(tbl, device="cpu"):
     return tmvcc.VersionedTable(**{k: _t(v, device) for k, v in tbl.items()})
 
@@ -230,6 +274,111 @@ def commit_case(wrap_seed=0):
     return tbl, args
 
 
+# out-of-range write slots as (a, b): slot a*R + b of a table of R records
+OOB_SLOTS = {"R-1": (1, -1), "R": (1, 0), "R+5": (1, 5), "-1": (0, -1),
+             "-R": (-1, 0), "-R-1": (-1, -1)}
+
+
+def gather_slot(s, R):
+    """The record a gather reads at slot ``s``: wrap once, then clamp."""
+    s = s + R if s < 0 else s
+    return min(max(s, 0), R - 1)
+
+
+def commit_oob_case(name, same_prio=False, wrap_seed=0):
+    """``commit_case`` with txn0's third request (lane 2) aimed at slot
+    ``name`` of ``OOB_SLOTS``, expecting the header a gather reads there.
+    With ``same_prio`` txn0's second request (lane 1) targets that gathered
+    record, unlocked and with its ring victims moved: lane 2 then shares
+    its priority with the record's winner, so it is granted and txn0
+    commits, though a slot still out of range once negatives wrap writes
+    nothing (a scatter drops it)."""
+    tbl, args = commit_case(wrap_seed)
+    R = tbl["cur_hdr"].shape[0]
+    a, b = OOB_SLOTS[name]
+    slots, expected = args[1].copy(), args[2].copy()
+    slots[2] = a * R + b
+    g = gather_slot(int(slots[2]), R)
+    if same_prio:
+        tbl["cur_hdr"][g, 0] &= ~np.uint32(1)
+        tbl["old_hdr"][g, :, 0] |= np.uint32(4)
+        slots[1] = g
+        expected[1] = tbl["cur_hdr"][g]
+    expected[2] = tbl["cur_hdr"][g]
+    return tbl, (args[0], slots, expected) + args[3:]
+
+
+def commit_dup_case(across=False, wrap_seed=0):
+    """``commit_case`` with two committing requests on record 19 carrying
+    different payloads: txn6's second request (lane 19) joins its first
+    (lane 18), or, ``across``, txn0's third request (lane 2) joins lane 18
+    and txn6 takes txn0's priority 0, so two transactions of one priority
+    both win and commit. Both move the same current version and advance
+    ``next_write``; the highest lane's version becomes current."""
+    tbl, args = commit_case(wrap_seed)
+    slots, expected, prio = (a.copy() for a in args[1:4])
+    lane = 2 if across else 19
+    slots[lane] = 19
+    expected[lane] = tbl["cur_hdr"][19]
+    if across:
+        prio[18:21] = 0
+    return tbl, (args[0], slots, expected, prio) + args[4:]
+
+
+def commit_many_case(seed=0, R=1 << 17, T=2500, WS=8, W=8, K=2):
+    """Q = T*WS = 20,000 requests, more than one pass of the commit
+    kernel's cluster: hot slots shared across transactions, records
+    written twice by one transaction, pairs of transactions of one
+    priority, stale expectations, locked targets, unmoved ring victims,
+    ring counters past several revolutions, write slots out of range
+    (R-1, R, R+5, -1, -R, -R-1), padding lanes with garbage ids, remote
+    failures, gated-off transactions and vector slots out of range.
+    Returns ``(table, args)`` as :func:`commit_case` does."""
+    rng = np.random.RandomState(seed)
+    Q = T * WS
+    r = np.arange(R)
+    cur = _hdr(r % 7, rng.randint(0, 50, R), np.where(rng.rand(R) < 0.01,
+                                                       1, 0))
+    old = np.broadcast_to(_hdr(0, 0, 4), (R, K, 2)).copy()
+    old[rng.rand(R, K) < 0.03] = _hdr(1, 1, 0)           # not yet moved
+    tbl = dict(
+        cur_hdr=cur, cur_data=rng.randint(0, 1000, (R, W)).astype(np.int32),
+        old_hdr=old, old_data=rng.randint(0, 1000, (R, K, W)).astype(np.int32),
+        next_write=rng.randint(0, 7 * K, R).astype(np.int32),
+        ovf_hdr=np.broadcast_to(_hdr(0, 0, 2), (R, 2, 2)).copy(),
+        ovf_data=np.zeros((R, 2, W), np.int32),
+        ovf_next=np.zeros(R, np.int32))
+    slots = rng.randint(0, R, (T, WS)).astype(np.int32)
+    hot = rng.rand(T, WS) < 0.01
+    slots[hot] = rng.randint(0, 16, hot.sum())
+    twice = rng.rand(T) < 0.05
+    slots[twice, 1] = slots[twice, 0]
+    slots = slots.reshape(-1)
+    oob = rng.rand(Q) < 0.01
+    slots[oob] = rng.choice([R - 1, R, R + 5, -1, -R, -R - 1], oob.sum())
+    gathered = np.clip(np.where(slots < 0, slots + R, slots), 0, R - 1)
+    expected = cur[gathered].copy()
+    expected[rng.rand(Q) < 0.01, 1] += 1                    # stale
+    prio = rng.permutation(T).astype(np.uint32)
+    prio[1::50] = prio[0::50][:len(prio[1::50])]            # shared
+    active = rng.rand(Q) < 0.95
+    txn = np.repeat(np.arange(T, dtype=np.int32), WS)
+    pad = ~active & (rng.rand(Q) < 0.5)
+    txn[pad] = 10 ** 6
+    slots[pad] = -7
+    vec = rng.randint(0, 5, 64).astype(np.uint32)
+    cts = rng.randint(1, 1 << 31, T).astype(np.uint32)
+    new_hdr = _hdr(np.repeat(np.arange(T) % 8, WS), np.repeat(cts, WS), 0)
+    txn_ok = rng.rand(T) < 0.95
+    txn_slot = (np.arange(T) % 64).astype(np.int32)
+    txn_slot[::97] = 70
+    ext = (rng.rand(T) < 0.02).astype(np.int32)
+    args = (vec, slots, expected, np.repeat(prio, WS), active, txn, new_hdr,
+            rng.randint(0, 1000, (Q, W)).astype(np.int32), txn_ok, txn_slot,
+            cts, ext)
+    return tbl, args
+
+
 COMMIT_OUT = tuple(f"table.{f}" for f in tmvcc.VersionedTable._fields) \
     + ("vec", "granted", "committed", "do_install", "fails")
 
@@ -301,6 +450,156 @@ def test_fused_commit_kernel_matches_plain_on_card(wrap_seed):
     _assert_leaves_equal(port_commit(fused_commit_ref, case), ker,
                          COMMIT_OUT)
     check_lattice(ker)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ts", [4, 9000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batched_probe_kernel_long_chains_on_card(seed, n_ts):
+    """Chains past one window, invalidated entries, sentinels, reads that
+    find nothing, a long vector (9,000 words)."""
+    dev = _cuda()
+    case = probe_chain_case(seed, n_ts=n_ts)
+    assert (probe_distance(case) > 16).sum() > 20
+    ker = port_probe(probe_ops.batched_probe, case, dev, max_probes=64)
+    plain = port_probe(batched_probe_ref, case, max_probes=64)
+    torch.cuda.synchronize()
+    _assert_leaves_equal(plain, ker, PROBE_OUT)
+    found, src = plain[1].numpy(), plain[2].numpy()
+    assert (~found).any() and {0, 1, 2} <= set(src[found].tolist())
+    for mp in (3, 16, 17):             # a chain cut inside, at, past a window
+        _assert_leaves_equal(port_probe(batched_probe_ref, case,
+                                        max_probes=mp),
+                             port_probe(probe_ops.batched_probe, case, dev,
+                                        max_probes=mp), PROBE_OUT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("same_prio", [False, True])
+@pytest.mark.parametrize("name", list(OOB_SLOTS))
+def test_fused_commit_kernel_out_of_range_on_card(name, same_prio):
+    """F1's cases: the kernel drops an out-of-range write and reads the
+    clamped slot, as its plain version does."""
+    dev = _cuda()
+    case = commit_oob_case(name, same_prio)
+    n = commit_ops.fused_commit.launches
+    ker = port_commit(commit_ops.fused_commit, case, dev)
+    torch.cuda.synchronize()
+    assert commit_ops.fused_commit.launches == n + 1
+    _assert_leaves_equal(port_commit(fused_commit_ref, case), ker,
+                         COMMIT_OUT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("across", [False, True], ids=["one_txn", "two_txns"])
+def test_fused_commit_kernel_duplicate_slots_on_card(across):
+    """Two committing requests on one record: the highest lane's version
+    becomes current, every time."""
+    dev = _cuda()
+    case = commit_dup_case(across)
+    plain = port_commit(fused_commit_ref, case)
+    for _ in range(3):
+        _assert_leaves_equal(plain, port_commit(commit_ops.fused_commit,
+                                                case, dev), COMMIT_OUT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_commit_kernel_many_requests_on_card(seed):
+    """20,000 requests, several per thread of the cluster, equal the plain
+    version bit for bit."""
+    dev = _cuda()
+    case = commit_many_case(seed)
+    n = commit_ops.fused_commit.launches
+    ker = port_commit(commit_ops.fused_commit, case, dev)
+    torch.cuda.synchronize()
+    assert commit_ops.fused_commit.launches == n + 1
+    plain = port_commit(fused_commit_ref, case)
+    _assert_leaves_equal(plain, ker, COMMIT_OUT)
+    g, c, inst = (x.numpy() for x in plain[9:12])
+    assert c.any() and (~c).any() and inst.any() and (g & ~inst).any()
+
+
+@pytest.mark.gpu
+def test_fused_commit_kernel_beyond_shared_memory_on_card():
+    """80,000 requests: a block's lane state outgrows its shared memory
+    and goes to the global scratch; the result still equals the plain
+    version bit for bit."""
+    dev = _cuda()
+    case = commit_many_case(0, T=10_000)
+    assert commit_ops.smem_bytes(case[1][1].shape[0]) > MAX_SMEM
+    n = commit_ops.fused_commit.launches
+    ker = port_commit(commit_ops.fused_commit, case, dev)
+    torch.cuda.synchronize()
+    assert commit_ops.fused_commit.launches == n + 1
+    _assert_leaves_equal(port_commit(fused_commit_ref, case), ker,
+                         COMMIT_OUT)
+
+
+def _arbitration_tables_clean():
+    """Every arbitration table the commit wrapper keeps holds no bid and
+    no vote."""
+    torch.cuda.synchronize()
+    assert commit_ops._ARBITRATION
+    for arb in commit_ops._ARBITRATION.values():
+        assert bool((arb[:, 0] == -1).all()) and bool((arb[:, 1] == 0).all())
+
+
+@pytest.mark.gpu
+def test_fused_commit_leaves_its_arbitration_table_clean_on_card():
+    """A launch leaves the table as it found it, so the next launch on it
+    (or a replay) sees no bid or vote of an earlier one: out-of-range
+    lanes, duplicate slots, many requests, one call after another."""
+    dev = _cuda()
+    cases = [commit_oob_case(name, same) for name in ("R", "-1", "R-1")
+             for same in (False, True)]
+    cases += [commit_dup_case(False), commit_dup_case(True),
+              commit_many_case(1), commit_case(2)]
+    for case in cases:
+        _assert_leaves_equal(port_commit(fused_commit_ref, case),
+                             port_commit(commit_ops.fused_commit, case, dev),
+                             COMMIT_OUT)
+        _arbitration_tables_clean()
+
+
+@pytest.mark.gpu
+def test_fused_commit_keeps_one_table_a_stream_on_card():
+    """Calls on another stream get a table of their own, and their result
+    equals the plain version."""
+    dev = _cuda()
+    case = commit_case(0)
+    plain = port_commit(fused_commit_ref, case)
+    side = torch.cuda.Stream(dev)
+    R = case[0]["cur_hdr"].shape[0]
+    _assert_leaves_equal(plain, port_commit(commit_ops.fused_commit, case,
+                                            dev), COMMIT_OUT)
+    with torch.cuda.stream(side):
+        ker = port_commit(commit_ops.fused_commit, case, dev)
+    side.synchronize()
+    _assert_leaves_equal(plain, ker, COMMIT_OUT)
+    main = torch.cuda.current_stream(dev).cuda_stream
+    assert side.cuda_stream != main
+    assert {main, side.cuda_stream} <= {
+        stream for _, stream, n in commit_ops._ARBITRATION if n == R}
+    _arbitration_tables_clean()
+
+
+@pytest.mark.gpu
+def test_fused_commit_wrapper_never_waits_on_the_device():
+    """The commit wrapper validates, allocates and launches: no torch op
+    of it synchronises with the device."""
+    dev = _cuda()
+    case = commit_case(1)
+    table = port_table(case[0], dev)
+    args = [_t(a, dev) for a in case[1]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = commit_ops.fused_commit(table, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_leaves_equal(port_commit(fused_commit_ref, case),
+                         flat_commit(out), COMMIT_OUT)
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ from repro.kernels.hash_probe import ops as jprobe_ops
 from repro.kernels.hash_probe import ref as jprobe_ref
 
 from repro_torch._u32 import np_to_i32
+from repro_torch.kernels import _cuda
 from repro_torch.kernels.commit import ops as commit_ops
 from repro_torch.kernels.commit.ref import fused_commit_ref
 from repro_torch.kernels.hash_probe import ops as probe_ops
@@ -28,7 +29,8 @@ from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
 from test_torch_gpu import (COMMIT_OUT, PROBE_OUT, check_hash_probe_gather,
                             check_lattice, commit_case, flat_commit,
                             port_commit, port_hash_probe, port_probe,
-                            port_table, probe_case, _t)
+                            port_table, probe_case, probe_chain_case,
+                            probe_distance, _t)
 
 
 def _assert_leaves_equal(ref, port, names):
@@ -60,6 +62,22 @@ def test_batched_probe_ref_matches_reference(seed, max_probes):
     assert found.any() and (~found).any()
     assert {0, 1, 2} <= set(src[found].tolist())
     assert (port[0].numpy()[km] == -1).any()
+
+
+@pytest.mark.parametrize("n_ts", [4, 9000])
+@pytest.mark.parametrize("max_probes", [16, 64])
+def test_batched_probe_ref_long_chains_matches_reference(max_probes, n_ts):
+    """The card tests' long-chain case: a directory at load 0.9 whose
+    chains run past the kernel's window of buckets."""
+    case = probe_chain_case(0, n_ts=n_ts)
+    dk, dv, tbl, ts, fb, lk, km = case
+    assert (probe_distance(case) > 16).sum() > 20
+    ref = jprobe_ref.batched_probe_ref(
+        jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
+        jnp.asarray(fb), jnp.asarray(lk), jnp.asarray(km),
+        max_probes=max_probes)
+    _assert_leaves_equal(ref, port_probe(batched_probe_ref, case,
+                                         max_probes=max_probes), PROBE_OUT)
 
 
 def test_batched_probe_locate_only_matches_reference():
@@ -140,6 +158,16 @@ def test_fused_commit_matches_pallas_interpret():
     _assert_leaves_equal(flat_commit(ker),
                          port_commit(commit_ops.fused_commit, case),
                          COMMIT_OUT)
+
+
+def test_fused_commit_shared_memory_arithmetic():
+    """A block keeps 25 bytes for each request of its eighth of the round,
+    padded to 16: the main path's 960 requests take 3,008 bytes of shared
+    memory, and up to 74,376 requests the lane state fits there (beyond,
+    the kernel keeps it in a global scratch)."""
+    assert commit_ops.smem_bytes(960) == 3008
+    assert commit_ops.smem_bytes(74_376) <= _cuda.MAX_SMEM \
+        < commit_ops.smem_bytes(74_377)
 
 
 def test_wrappers_take_plain_versions_on_cpu():
