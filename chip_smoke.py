@@ -4,6 +4,7 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py [--rounds 32] [--mix-rounds 32] [--probe-rounds 8]
                           [--seed 0] [--profile-rounds 4] [--lm-reps 20]
+                          [--durable-rounds 8]
 
 Phases, each fatal on failure:
 
@@ -72,7 +73,30 @@ Phases, each fatal on failure:
    calls of the gemma2 local layer, with queries scaled by 2 and by 16 so
    that the logits reach the softcap's range, are held to the float32
    plain version alone. Each paged case prints its live partitions and
-   blocks, each scan case its blocks and warps an SM.
+   blocks, each scan case its blocks and warps an SM;
+9. the durability path, with the settings of the reference's kill bench
+   (``bench_tpcc_scaling.py --kill``: a GC sweep every 2 rounds with
+   E = 1, a journal of ``5 (n + 2)`` entries a thread, checkpoints into a
+   temporary directory that is deleted afterwards), on the state the
+   earlier phases left: ``--durable-rounds`` (n) full-mix rounds.
+   (a) The kernel path, journalled, checkpointed and uninterrupted,
+   against the same draws on the plain path from a cloned start state:
+   every sub-round's outcomes, every statistic (``gc_sweeps`` and
+   ``reclaim_traj`` included), every journal leaf and the final state must
+   be identical, both kernels must launch in every write sub-round, and
+   the sweeps must reclaim overflow slots. (b) The kernel path killed at
+   round ``(n // 2) | 1`` with intents in flight and recovered, against
+   (a): the final state with its vector, the statistics and the resolved
+   journal entries must be identical, the replicas equal after
+   ``rereplicate``, the checkpoint older than the kill and some intent
+   undetermined. (c) ``hash_probe`` against its plain version over every
+   record whose overflow ring (a) touched, under the last sweep's safe
+   vector and each snapshot of its log: some reads must be served from an
+   overflow ring and some probed rings must hold reclaimed slots. It
+   prints each checkpoint save's bytes and seconds, the restore and replay
+   seconds, ``recovery_seconds``, each sweep's device time and the
+   durable round's median beside phase 5's, each beside the card's name
+   and power limit.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -83,11 +107,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import functools
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,6 +122,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch._u32 import rows_of, to_i32, u64  # noqa: E402
+from repro_torch.checkpoint import snapshot  # noqa: E402
+from repro_torch.core import gc as gc_ops, wal  # noqa: E402
 from repro_torch.core import hashtable as ht, mvcc  # noqa: E402
 from repro_torch.core import header as hdr_ops  # noqa: E402
 from repro_torch.core.tsoracle import VectorOracle  # noqa: E402
@@ -1400,6 +1428,252 @@ def print_round_times(label, rounds, commits, what):
           f"{commits / sum(rounds):.1f} committed {what}/s")
 
 
+# ------------------------------------------------------- durability ----
+# the settings of the reference's kill bench (bench_tpcc_scaling.py --kill)
+DURABLE_GC = dict(gc_interval=2, max_txn_time=1)
+
+
+class DurableProbe:
+    """While active, times what the durability path does through the
+    modules ``tpcc`` calls: each checkpoint save (bytes and seconds), the
+    restore, the replay of the table and of the vector (seconds, the device
+    synchronised), and each GC sweep (device time with the GPU held while
+    it is queued, and the overflow slots whose deleted bit it set that were
+    live before). It keeps the last sweep's log and safe vector."""
+
+    def __init__(self):
+        self.saves, self.restores, self.replays, self.sweeps = [], [], [], []
+        self.reclaimed = 0
+        self.last_log = self.last_safe = None
+
+    def __enter__(self):
+        self.orig = [(snapshot, "save"), (snapshot, "restore"),
+                     (wal, "replay"), (wal, "replay_vector"),
+                     (gc_ops, "gc_round")]
+        self.orig = [(m, n, getattr(m, n)) for m, n in self.orig]
+        fns = dict(save=self._save, restore=self._restore,
+                   replay=functools.partial(self._replay, "table"),
+                   replay_vector=functools.partial(self._replay, "vector"),
+                   gc_round=self._gc_round)
+        for m, n, fn in self.orig:
+            setattr(m, n, functools.partial(fns[n], fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.orig:
+            setattr(m, n, fn)
+
+    def _save(self, fn, path, params, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(path, params, *a, **k)
+        self.saves.append((sum(t.numel() * t.element_size()
+                               for t in snapshot_leaves(params)),
+                           time.perf_counter() - t0))
+
+    def _restore(self, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        self.restores.append(time.perf_counter() - t0)
+        return out
+
+    def _replay(self, what, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        self.replays.append((what, time.perf_counter() - t0))
+        return out
+
+    def _gc_round(self, fn, table, vec, log, now, max_txn_time):
+        was = hdr_ops.is_deleted(table.ovf_hdr)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        out = fn(table, vec, log, now, max_txn_time)
+        end.record()
+        torch.cuda.synchronize()
+        self.sweeps.append(start.elapsed_time(end))
+        self.reclaimed += int((hdr_ops.is_deleted(table.ovf_hdr)
+                               & ~was).sum())
+        self.last_log = clone(log)
+        self.last_safe = gc_ops.safe_vector(log, now, max_txn_time)
+        return out
+
+
+def snapshot_leaves(tree):
+    return [t for _, t in snapshot._items(tree)]
+
+
+def resolved_entries(j):
+    """Replica 0's entries in append order with the undetermined ones
+    dropped (the ring holds the whole run), and the count of those."""
+    pos = torch.arange(j.capacity, device=j.used.device)[None, :]
+    written = pos < j.used[:, None]
+    keep = j.resolved[0] & written
+    return ([getattr(j, f)[0][keep] for f in wal.ENTRY_FIELDS],
+            int((~j.resolved[0] & written).sum()))
+
+
+def reclaimed_rings_probe(table, probe):
+    """(c): ``hash_probe`` over a directory of every record whose overflow
+    ring the run touched (its ring cursor moved, or it holds a live
+    version), under the last sweep's safe vector, each snapshot of its log
+    and the final vector, against the plain version: reads must be served
+    from the overflow ring, and the probed rings must hold reclaimed
+    slots. Returns ``(max_abs_err, summary)``."""
+    dead = hdr_ops.is_deleted(table.ovf_hdr)
+    touched = rows_of((~dead).any(dim=1) | (table.ovf_next != 0))
+    check(touched.numel() > 0, "no overflow ring was touched")
+    n = touched.numel()
+    n_buckets = 1 << max(6, (2 * n - 1).bit_length())
+    d, placed = ht.insert(ht.init(n_buckets, device=touched.device),
+                          touched.to(torch.int32), touched.to(torch.int32),
+                          max_probes=64)
+    check(bool((placed >= 0).all()), "reclaimed-ring directory overflowed")
+    q = touched.to(torch.int32)
+    log = probe.last_log
+    vecs = [("safe vector", probe.last_safe)] + [
+        (f"snapshot at round {int(t)}", v)
+        for t, v in zip(log.times.tolist(), log.vecs) if t >= 0]
+    err, src = 0, [0, 0, 0]
+    kw = dict(max_probes=64)
+    for label, vec in vecs:
+        args = (d.keys, d.vals, table, vec.contiguous(), q)
+        ker = probe_ops.hash_probe(*args, **kw)
+        plain = probe_ref.hash_probe_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, same(ker, plain, f"hash_probe (reclaimed rings, "
+                                        f"{label})"))
+        check_gather(args, kw, ker, f"hash_probe (reclaimed rings, {label})")
+        for i in range(3):
+            src[i] += int((ker[1] & (ker[2] == i)).sum())
+    n_reclaimed_rings = int((dead[touched].any(dim=1)
+                             & (table.ovf_next[touched] != 0)).sum())
+    check(src[2] > 0, f"no read was served from an overflow ring: src0/1/2 "
+                      f"{src}")
+    check(n_reclaimed_rings > 0, "no probed ring holds a reclaimed slot")
+    return err, (f"{n} records over {len(vecs)} snapshots, found src0/1/2 "
+                 f"{src}, {n_reclaimed_rings} rings with reclaimed slots")
+
+
+def run_durable_phase(cfg, plain_cfg, lay, st0, oracle, draws, smi):
+    """Phase 9 (see the module docstring). Returns ``(launches of the
+    kernel run, hash_probe's max_abs_err in (c), the run's round
+    times)``."""
+    n = len(draws)
+    kill = tpcc.FailureInjector(kill_round=(n // 2) | 1, in_flight=True)
+    st_plain0, st_kill0 = clone(st0), clone(st0)
+    runs = {}
+    for label, c, st, failure in (("kernels", cfg, st0, None),
+                                  ("plain", plain_cfg, st_plain0, None),
+                                  ("killed", cfg, st_kill0, kill)):
+        jnl = tpcc.make_journal(c, oracle, capacity_rounds=n + 2,
+                                device="cuda")
+        driver = functools.partial(
+            tpcc.run_mixed_rounds, journal=jnl, failure=failure,
+            **DURABLE_GC)
+        with tempfile.TemporaryDirectory() as d, DurableProbe() as probe, \
+                SubRounds() as sub:
+            reset_launch_counts()
+            st, stats, rounds = timed_run(
+                functools.partial(driver, checkpoint_dir=d), c, lay, st,
+                oracle, lambda r: draws[r], n)
+            launches = launch_counts()
+        runs[label] = (st, stats, rounds, jnl, probe, sub, launches)
+    st_a, stats_a, rounds_a, jnl_a, probe_a, sub_a, launches_a = \
+        runs["kernels"]
+    st_p, stats_p, _, jnl_p, _, sub_p, _ = runs["plain"]
+    st_b, stats_b, _, jnl_b, probe_b, _, _ = runs["killed"]
+
+    # (a) the kernel path against the plain path
+    check([x for x, _, _ in sub_a.log] == [x for x, _, _ in sub_p.log],
+          "the durable runs ran different sub-rounds")
+    for i, ((x, ok, _), (_, op, _)) in enumerate(zip(sub_a.log, sub_p.log)):
+        same(ok, op, f"durable sub-round {i} ({x}) outcomes")
+    for f in stats_a._fields:
+        a, b = getattr(stats_a, f), getattr(stats_p, f)
+        check(a == b or (a != a and b != b), f"durable statistic {f} "
+                                             f"differs")
+    for f, a, b in zip(wal.Journal._fields, jnl_a, jnl_p):
+        check(torch.equal(a, b), f"durable journal leaf {f} differs")
+    same(st_a, st_p, "durable final state")
+    for x in ("neworder_round", "payment_round", "delivery_round"):
+        per_call = sub_a.launches(x)
+        check(bool(per_call) and all(
+            d["batched_probe"] == 1 and d["fused_commit"] == 1
+            for d in per_call),
+            f"{x}: the kernels did not launch once in every durable "
+            f"sub-round: {per_call}")
+    check(stats_a.gc_sweeps == n // DURABLE_GC["gc_interval"],
+          f"{stats_a.gc_sweeps} GC sweeps in {n} rounds")
+    check(probe_a.reclaimed > 0, "no GC sweep reclaimed an overflow slot")
+    check(len(probe_a.saves) == 1 + stats_a.gc_sweeps,
+          f"{len(probe_a.saves)} checkpoints for {stats_a.gc_sweeps} sweeps")
+    print(f"durable path (a): {n} mix rounds, GC every "
+          f"{DURABLE_GC['gc_interval']} (E = {DURABLE_GC['max_txn_time']}), "
+          f"journal of {jnl_a.capacity} entries a thread, launches "
+          f"{launches_a}; kernels and plain path identical in "
+          f"{len(sub_a.log)} sub-rounds, the statistics, every journal leaf "
+          f"and the final state; gc_sweeps {stats_a.gc_sweeps}, reclaim_traj "
+          f"{stats_a.reclaim_traj}, {probe_a.reclaimed} overflow slots "
+          f"reclaimed, ovf_reads {stats_a.ovf_reads}, ovf_peak "
+          f"{stats_a.ovf_peak}, commits {stats_a.total_commits}/"
+          f"{stats_a.total_attempts}")
+
+    # (b) killed and recovered against (a)
+    (rep,) = stats_b.recovery
+    check(rep.checkpoint_round < rep.kill_round,
+          f"checkpoint round {rep.checkpoint_round} not before the kill "
+          f"at {rep.kill_round}")
+    check(rep.undetermined > 0, "no undetermined intent at the kill")
+    same(st_b, st_a, "recovered final state (with its vector)")
+    for f in stats_a._fields:
+        a, b = getattr(stats_a, f), getattr(stats_b, f)
+        check(f == "recovery" or a == b or (a != a and b != b),
+              f"recovered statistic {f} differs")
+    for f in wal.ENTRY_FIELDS:
+        x = getattr(jnl_b, f)
+        check(bool((x == x[:1]).all()), f"journal replicas differ in {f} "
+                                        f"after rereplicate")
+    (ea, ua), (eb, ub) = resolved_entries(jnl_a), resolved_entries(jnl_b)
+    check(ua == 0 and ub == rep.undetermined,
+          f"undetermined entries {ua}, {ub} for {rep.undetermined}")
+    for f, a, b in zip(wal.ENTRY_FIELDS, ea, eb):
+        check(torch.equal(a, b), f"recovered journal entries differ in {f}")
+    check(int((jnl_b.used - jnl_a.used).sum()) == ub,
+          "the journal cursors differ by more than the undetermined intents")
+    print(f"durable path (b): killed at round {rep.kill_round} with "
+          f"intents in flight, restored the checkpoint of round "
+          f"{rep.checkpoint_round}, replayed {rep.replayed_entries} entries, "
+          f"skipped {rep.undetermined} undetermined, released "
+          f"{rep.released_locks} locks; final state, vector, statistics "
+          f"and resolved journal entries identical to (a)")
+
+    # (c) hash_probe over the rings GC reclaimed
+    err, summary = reclaimed_rings_probe(st_a.nam.table, probe_a)
+    print(f"durable path (c): hash_probe on reclaimed overflow rings: "
+          f"{summary}: bit-identical, gathered versions equal lookup + "
+          f"read_visible")
+
+    for b, sec in probe_a.saves:
+        print(f"checkpoint save (a): {b} B in {sec:.4f} s "
+              f"({b / sec / 1e9:.3f} GB/s) | {smi}")
+    for b, sec in probe_b.saves:
+        print(f"checkpoint save (b): {b} B in {sec:.4f} s | {smi}")
+    print(f"recovery (b): restore {probe_b.restores[0]:.4f} s, replay "
+          + ", ".join(f"{w} {sec:.4f} s" for w, sec in probe_b.replays)
+          + f", {rep.replayed_entries} entries replayed, recovery_seconds "
+          f"{rep.recovery_seconds:.4f} | {smi}")
+    print("GC sweep device time (a): " + ", ".join(
+        f"{ms:.4f} ms" for ms in probe_a.sweeps) + f" | {smi}")
+    return launches_a, err, rounds_a, stats_a.total_commits
+
+
 # -------------------------------------------------------------- main ----
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1411,6 +1685,9 @@ def main(argv=None):
                     help="full-mix rounds of the hash_probe path (phase 6)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-rounds", type=int, default=4)
+    ap.add_argument("--durable-rounds", type=int, default=8,
+                    help="journalled, checkpointed, GC-on mix rounds of "
+                         "phase 9 (killed at round (n // 2) | 1)")
     ap.add_argument("--lm-reps", type=int, default=20,
                     help="launches timed per LM case of phase 8 (half for "
                          "attention prefill, a quarter for the expert FFN)")
@@ -1697,6 +1974,37 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernels.extend(run_lm_phase(dev, args.seed + 8, args.lm_reps))
     print(f"LM phase: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 9. the durability path: GC, the journal, checkpoints, recovery ----
+    t0 = time.perf_counter()
+    del st_k, st_mk
+    durable_draw = mix_stream(args.seed + 9)
+    draws = [durable_draw(r) for r in range(args.durable_rounds)]
+    durable_launches, err, drounds, dcommits = run_durable_phase(
+        cfg, plain_cfg, lay, st_pr, oracle, draws, smi)
+    report["hash_probe"] = max(report["hash_probe"], err)
+    for k in kernels:
+        if k["name"] == "hash_probe":
+            k["max_abs_err"] = report["hash_probe"]
+            k["match"] = report["hash_probe"] == 0
+        if k["name"] in ("batched_probe", "fused_commit"):
+            k["launches_by_path"]["durable_mix"] = durable_launches[k["name"]]
+    # a round's time holds its GC sweep and checkpoint, when it has them
+    every = DURABLE_GC["gc_interval"]
+    for label, pick in (("journal only", lambda r: (r + 1) % every),
+                        ("with a GC sweep and a checkpoint",
+                         lambda r: not (r + 1) % every)):
+        q = [t * 1e3 for r, t in enumerate(drounds) if r and pick(r)]
+        if q:
+            print(f"round time, durable mix, kernels, {label}: median "
+                  f"{torch.tensor(q, dtype=torch.float64).median():.3f} ms "
+                  f"over {len(q)} rounds (host clock; the first round left "
+                  f"out) | {smi}")
+    print(f"durable mix, kernels: {dcommits / sum(drounds):.1f} committed "
+          f"transactions/s over its {len(drounds)} rounds")
+    print_round_times("mix (phase 5), kernels", mrounds_k,
+                      mstats_k.total_commits, "transactions")
+    print(f"durable phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")

@@ -5,7 +5,10 @@ numpy arrays (uint32 lanes as they are, or already viewed as int32) and
 builds the port's state on ``device``; ``tpcc_state_to_numpy`` maps the
 port's state back to numpy leaves with the reference's dtypes. Both walk
 the fields by name, so any object with the reference's attribute layout
-will do. This is how both packages start from identical data.
+will do. This is how both packages start from identical data. The §6.2
+journal (``wal.Journal``) and the §5.3 snapshot log (``gc.SnapshotLog``)
+cross the same way (``journal_from_numpy``, ``journal_to_numpy``,
+``snapshot_log_from_numpy``, ``snapshot_log_to_numpy``).
 
 ``tensor_from_numpy`` and ``tensor_to_numpy`` carry float arrays (the
 inputs and outputs of the LM kernels) across, bfloat16 included: JAX's
@@ -19,13 +22,15 @@ import numpy as np
 import torch
 
 from repro_torch._u32 import np_to_i32, np_to_u32
-from repro_torch.core import hashtable as ht, mvcc, rangeindex as ri, store
+from repro_torch.core import gc, hashtable as ht, mvcc, rangeindex as ri, \
+    store, wal
 from repro_torch.core.tsoracle import VectorState
 from repro_torch.db.tpcc import TPCCState
 
 # fields that hold uint32 words in the reference
 U32_FIELDS = frozenset({"cur_hdr", "old_hdr", "ovf_hdr", "vec", "keys",
-                        "base_keys", "delta_keys"})
+                        "base_keys", "delta_keys", "ts_vec", "new_hdr",
+                        "vecs"})
 
 
 def _t(a, device):
@@ -88,3 +93,20 @@ def tpcc_state_to_numpy(state: TPCCState) -> TPCCState:
         hist_cursor=state.hist_cursor.cpu().numpy(),
         directory=None if state.directory is None
         else _to_np(state.directory))
+
+
+def journal_from_numpy(j, device) -> wal.Journal:
+    return _tuple_from(wal.Journal, j, device)
+
+
+def journal_to_numpy(j: wal.Journal) -> wal.Journal:
+    """The journal with numpy leaves in the reference's dtypes."""
+    return _to_np(j)
+
+
+def snapshot_log_from_numpy(log, device) -> gc.SnapshotLog:
+    return _tuple_from(gc.SnapshotLog, log, device)
+
+
+def snapshot_log_to_numpy(log: gc.SnapshotLog) -> gc.SnapshotLog:
+    return _to_np(log)

@@ -11,8 +11,8 @@ KO overflow slots:
   the version mover feeds.
 
 Headers are uint32 words in int32 storage (``repro_torch._u32``). The
-functions that change a table (:func:`install`, :func:`version_mover`)
-update its tensors **in place** and return the same table; the readers
+functions that change a table (:func:`install`, :func:`version_mover`,
+:func:`compact_overflow`) update its tensors **in place** and return the same table; the readers
 never write.
 """
 from __future__ import annotations
@@ -252,4 +252,16 @@ def version_mover(tbl: VersionedTable, budget_per_record: int = 1, *,
         tbl.ovf_next.copy_(torch.remainder(tbl.ovf_next + has.to(torch.int32),
                                            KO))
         tbl.old_hdr[rows, src] = hdr_ops.with_moved(mh, True)
+    return tbl
+
+
+def compact_overflow(tbl: VersionedTable) -> VersionedTable:
+    """Lazy truncation of GC-marked overflow versions (§5.3), in place:
+    every deleted-bit overflow slot becomes the reusable sentinel (a zero
+    header with only the deleted bit, a zero payload). Idempotent and
+    invisible to reads (deleted versions are never returned)."""
+    dead = (tbl.ovf_hdr[..., hdr_ops.META] & hdr_ops.DELETED_BIT) != 0
+    tbl.ovf_hdr[..., hdr_ops.META].masked_fill_(dead, hdr_ops.DELETED_BIT)
+    tbl.ovf_hdr[..., hdr_ops.CTS].masked_fill_(dead, 0)
+    tbl.ovf_data.masked_fill_(dead[..., None], 0)
     return tbl

@@ -18,7 +18,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch._u32 import gidx, sidx, to_i32, u64
-from repro_torch.core import cas, hashtable as ht, header as hdr_ops, mvcc
+from repro_torch.core import cas, hashtable as ht, header as hdr_ops, mvcc, \
+    wal
 from repro_torch.core.mvcc import VersionedTable
 from repro_torch.core.tsoracle import VectorOracle, VectorState
 
@@ -74,6 +75,7 @@ class RoundResult(NamedTuple):
     read_data: torch.Tensor      # int32 [T, RS, W]
     ops: OpCounts
     vis: VisStats
+    journal: Optional[wal.Journal] = None
 
 
 ComputeFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -181,7 +183,8 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
               active: Optional[torch.Tensor] = None,
               directory: Optional[ht.HashTable] = None,
               keyed: Optional[KeyedReads] = None, dir_max_probes: int = 16,
-              fused_commit: bool = False,
+              journal: Optional[wal.Journal] = None, journal_round=0,
+              journal_seq=0, fused_commit: bool = False,
               batched_probe: bool = False) -> RoundResult:
     """Execute one batched round of the SI protocol.
 
@@ -192,6 +195,12 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
     ``kernels.hash_probe`` kernel and ``fused_commit`` runs the write side
     with the ``kernels.commit`` kernel; both are access-path choices with
     results identical to the plain rendering.
+
+    ``journal`` switches the §6.2 WAL on: the intent records (T, resolved
+    write slots, headers, payloads, effective write mask) are appended,
+    stamped ``(journal_round, journal_seq)``, before either commit
+    rendering runs, and the outcome records after the decision; both
+    appends update the journal in place without waiting on the device.
     """
     T, RS = batch.read_slots.shape
     WS = batch.write_ref.shape[1]
@@ -270,6 +279,16 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
     txn_of_req = torch.arange(T, dtype=torch.int32, device=dev)[:, None] \
         .expand(T, WS).reshape(-1)
 
+    # ---- 6. the WAL intent records (§6.2), before install -----------------
+    # they depend only on commit-phase inputs, so both commit renderings
+    # log the same bytes
+    if journal is not None:
+        wal.append_intent(
+            journal, batch.tid, rts_vec,
+            *wal.pad_writes(journal, write_slots, new_hdr, new_data,
+                            req_active.reshape(T, WS)),
+            round_no=journal_round, seq=journal_seq)
+
     # ---- 5./7./8./9. validate+lock, install, release, make visible --------
     if fused_commit:
         from repro_torch.kernels.commit import ops as commit_ops
@@ -288,6 +307,10 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
         committed = co.committed
         do_install, release_mask = co.do_install, co.release_mask
         oracle.make_visible(state, batch.tid, cts, committed)
+    # the outcome lands after the decision (§3.2: until then the
+    # transaction is undetermined and its locks are the monitor's)
+    if journal is not None:
+        wal.append_outcome(journal, batch.tid, committed)
 
     # ---- op accounting -----------------------------------------------------
     ops = count_ops(oracle, batch, txn_found, from_current,
@@ -298,4 +321,4 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
                     active)
     return RoundResult(table=table, oracle_state=state, committed=committed,
                        snapshot_miss=~txn_found, read_data=read_data, ops=ops,
-                       vis=vis)
+                       vis=vis, journal=journal)

@@ -16,14 +16,17 @@ passed.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._u32 import gidx, to_i32, u64
-from repro_torch.core import hashtable as ht, header as hdr_ops, locality, \
-    mvcc, netmodel, rangeindex as ri, si, store
+from repro_torch.checkpoint import snapshot
+from repro_torch.core import cas, gc as gc_ops, hashtable as ht, \
+    header as hdr_ops, locality, mvcc, netmodel, rangeindex as ri, si, \
+    store, wal
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.si import TxnBatch
 from repro_torch.core.tsoracle import VectorOracle
@@ -220,6 +223,32 @@ def order_key(w, d, o_id):
     return ((w * DISTRICTS + d) * MAX_O_PER_DISTRICT + o_id).to(torch.int32)
 
 
+# ------------------------------------------------------- §6.2 WAL journal ----
+# Sub-round sequence numbers within one mixed round: the journal stamps each
+# entry (round, seq) so that replay breaks ties of equal T in the engine's
+# order (the write sub-rounds run in this order, each insert group right
+# after its sub-round's SI commit).
+_JSEQ_NEWORDER, _JSEQ_NEWORDER_INS, _JSEQ_PAYMENT, _JSEQ_PAYMENT_INS, \
+    _JSEQ_DELIVERY = range(5)
+JOURNAL_WS = 2 + MAX_OL   # widest logged statement: the new-order insert
+#   group (order + new-order + up to 15 order lines in one entry)
+JOURNAL_APPENDS_PER_ROUND = 5   # every executed write sub-round appends
+#   one entry a thread (inactive lanes log an empty write mask)
+
+
+def make_journal(cfg: TPCCConfig, oracle: VectorOracle, *,
+                 capacity_rounds: int, n_replicas: int = 2,
+                 device=None) -> wal.Journal:
+    """A §6.2 journal for the mixed driver on ``device`` (default
+    ``cuda``): a round appends at most :data:`JOURNAL_APPENDS_PER_ROUND`
+    entries a thread, so the ring covers ``capacity_rounds`` rounds (a
+    checkpoint interval plus slack for in-flight intents)."""
+    return wal.init_journal(
+        cfg.n_threads, JOURNAL_APPENDS_PER_ROUND * capacity_rounds,
+        oracle.n_slots, JOURNAL_WS, WIDTH, n_replicas=n_replicas,
+        device=device)
+
+
 # --------------------------------------------------- §5.2 hash directory ----
 # Key encodings: per-table tag in the top bits, dense rank below (uint32
 # words, built in int64 and narrowed).
@@ -377,6 +406,7 @@ class NewOrderResult(NamedTuple):
     ops: si.OpCounts
     batch: TxnBatch
     vis: si.VisStats
+    journal: Optional[wal.Journal] = None
 
 
 def _neworder_batch(cfg: TPCCConfig, lay: TPCCLayout,
@@ -435,9 +465,10 @@ def _neworder_new_data(rd, inp: workload.NewOrderInputs):
 
 def _neworder_inserts(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                       oracle: VectorOracle, tbl, vec, committed, read_data,
-                      inp: workload.NewOrderInputs, round_no):
+                      inp: workload.NewOrderInputs, round_no, journal=None):
     """Order, new-order and order-line inserts into thread-private extends
-    plus the order secondary index, within the transaction boundary."""
+    plus the order secondary index, within the transaction boundary; with
+    a journal, the insert group is logged as one entry."""
     T = inp.w_id.shape[0]
     dev = inp.w_id.device
     line = torch.arange(MAX_OL, device=dev)[None, :]
@@ -481,6 +512,26 @@ def _neworder_inserts(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         oldata.reshape(-1, WIDTH),
         (can_insert[:, None] & line_mask).reshape(-1))
 
+    if journal is not None:
+        # one entry for the whole group: its slots are disjoint (private
+        # extends), so replaying it as one install equals the three above.
+        # T is the vector after the sub-round: the inserts carry its commit
+        # timestamps and replay right after it (tie broken by seq)
+        jslots = torch.cat([oslot[:, None], noslot[:, None],
+                            olslot.to(torch.int32)], dim=1)
+        jhdr = hdr_ops.pack(slot_ids, cts)[:, None, :].expand(T, 2 + MAX_OL,
+                                                              2)
+        jdata = torch.cat([odata[:, None, :], nodata[:, None, :], oldata],
+                          dim=1)
+        jmask = torch.cat([can_insert[:, None], can_insert[:, None],
+                           can_insert[:, None] & line_mask], dim=1)
+        wal.append_intent(
+            journal, tids, vec[:journal.ts_vec.shape[-1]],
+            *wal.pad_writes(journal, jslots, jhdr, jdata,
+                            jmask),
+            round_no=round_no, seq=_JSEQ_NEWORDER_INS)
+        wal.append_outcome(journal, tids, can_insert)
+
     okey = order_key(inp.w_id, inp.d_id, o_id)
     idx = ri.insert(st.order_index, okey, oslot, mask=can_insert)
     cursor = st.nam.extends.cursor.clone()
@@ -490,26 +541,48 @@ def _neworder_inserts(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
 
 def neworder_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                    oracle: VectorOracle, inp: workload.NewOrderInputs,
-                   rts_vec=None, round_no=0, active=None) -> NewOrderResult:
+                   rts_vec=None, round_no=0, active=None,
+                   journal=None) -> NewOrderResult:
     """One batched round of new-order transactions through SI. The pool
-    and the vector of ``st`` are updated in place."""
+    and the vector of ``st`` are updated in place, and so is ``journal``
+    (the §6.2 WAL) when one is given."""
     batch, keyed = _neworder_batch(cfg, lay, inp, active)
     out = si.run_round(st.nam.table, oracle, st.nam.oracle_state, batch,
                        lambda rh, rd, vec: _neworder_new_data(rd, inp),
                        rts_vec=rts_vec, active=active,
                        directory=st.directory if keyed is not None else None,
                        keyed=keyed, dir_max_probes=DIR_PROBES,
+                       journal=journal, journal_round=round_no,
+                       journal_seq=_JSEQ_NEWORDER,
                        fused_commit=cfg.fused_commit,
                        batched_probe=cfg.batched_probe)
     tbl, idx, extends, o_id = _neworder_inserts(
         cfg, lay, st, oracle, out.table, out.oracle_state.vec, out.committed,
-        out.read_data, inp, round_no)
+        out.read_data, inp, round_no, journal=journal)
     nam = st.nam._replace(table=tbl, oracle_state=out.oracle_state,
                           extends=extends)
     return NewOrderResult(
         state=st._replace(nam=nam, order_index=idx),
         committed=out.committed, snapshot_miss=out.snapshot_miss, o_id=o_id,
-        ops=out.ops, batch=batch, vis=out.vis)
+        ops=out.ops, batch=batch, vis=out.vis, journal=journal)
+
+
+# ------------------------------------------------------ sustained-run GC ----
+def _gc_init(oracle, gc_interval: int, gc_snapshots: int, device):
+    """The GC thread's §5.3 snapshot log of a driver run (None when GC is
+    off)."""
+    if gc_interval <= 0:
+        return None
+    return gc_ops.init_log(gc_snapshots, oracle.n_slots, device=device)
+
+
+def _gc_sweep(lay, st: TPCCState, log, now, max_txn_time) -> float:
+    """One GC-thread step over the pool (snapshot T_R, safe vector, sweep,
+    lazy truncation), in place. Returns the reclaimable fraction."""
+    tbl = st.nam.table
+    gc_ops.gc_round(tbl, st.nam.oracle_state.vec, log, now, max_txn_time)
+    return float(gc_ops.reclaimable_fraction(
+        tbl, n_records=lay.catalog.total_records))
 
 
 # ----------------------------------------------------- retry-queue driver ----
@@ -549,11 +622,19 @@ class NewOrderRunStats(NamedTuple):
 def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                         oracle: VectorOracle, draw: workload.Draw,
                         n_rounds: int, *, move_versions: bool = True,
-                        device=None):
+                        gc_interval: int = 0, max_txn_time: int = 4,
+                        gc_snapshots: int = 8, device=None):
     """Closed-loop driver on one memory server: each thread runs new-orders
     back to back, and an aborted transaction re-enters the next round with
     its original inputs (§7.4). ``draw(round)`` supplies fresh inputs.
     ``device`` (default ``cuda``) must be where ``st`` lives.
+
+    ``gc_interval > 0`` turns on sustained execution (§5.3): every
+    ``gc_interval`` rounds the GC thread snapshots the vector into a log of
+    ``gc_snapshots``, marks the versions no snapshot ``max_txn_time``
+    rounds old can read and truncates them; the version mover then only
+    advances into reclaimed overflow slots (``reuse_only``). The round
+    counter is the wall clock.
 
     Returns ``(state, NewOrderRunStats)``; the pool is updated in place.
     """
@@ -568,13 +649,19 @@ def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     attempts = commits = retries = 0
     snapshot_misses = contention_aborts = ovf_reads = ovf_peak = 0
     ops_sum = [0.0] * len(si.OpCounts._fields)
+    use_gc = gc_interval > 0
+    gc_log = _gc_init(oracle, gc_interval, gc_snapshots, dev)
+    reclaim_traj = []
 
     for r in range(n_rounds):
         inp = _merge_retries(pending, draw(r), retry_mask, T)
         out = neworder_round(cfg, lay, st, oracle, inp, round_no=r)
         st = out.state
         if move_versions:
-            mvcc.version_mover(st.nam.table)
+            mvcc.version_mover(st.nam.table, reuse_only=use_gc)
+        if use_gc and (r + 1) % gc_interval == 0:
+            frac = _gc_sweep(lay, st, gc_log, r, max_txn_time)
+            reclaim_traj.append((r, frac))
 
         c, miss = out.committed, out.snapshot_miss
         committed_rounds.append(c)
@@ -600,6 +687,7 @@ def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         ops=si.OpCounts(*ops_sum), local_fraction=float("nan"),
         missed=torch.stack(missed_rounds), snapshot_misses=snapshot_misses,
         contention_aborts=contention_aborts, ovf_reads=ovf_reads,
+        gc_sweeps=len(reclaim_traj), reclaim_traj=tuple(reclaim_traj),
         ovf_peak=ovf_peak)
     return st, stats
 
@@ -634,6 +722,7 @@ class PaymentResult(NamedTuple):
     batch: TxnBatch
     snapshot_miss: torch.Tensor  # bool [T]
     vis: si.VisStats
+    journal: Optional[wal.Journal] = None
 
 
 def _payment_batch(cfg: TPCCConfig, lay: TPCCLayout,
@@ -665,9 +754,9 @@ def _payment_new_data(rd, inp: workload.PaymentInputs):
 
 
 def _payment_insert(cfg, lay, st: TPCCState, oracle, tbl, vec, committed,
-                    inp: workload.PaymentInputs):
-    """History insert into the thread-private extend. Returns the table
-    and the advanced history cursor."""
+                    inp: workload.PaymentInputs, round_no=0, journal=None):
+    """History insert into the thread-private extend, logged with a
+    journal. Returns the table and the advanced history cursor."""
     T = inp.w_id.shape[0]
     dev = inp.w_id.device
     tids = torch.arange(T, dtype=torch.int32, device=dev)
@@ -681,28 +770,40 @@ def _payment_insert(cfg, lay, st: TPCCState, oracle, tbl, vec, committed,
     hdata[:, H_COL["c_id"]] = inp.c_id
     hdata[:, H_COL["w_id"]] = inp.w_id
     tbl = _insert_install(tbl, hslot, slot_ids, cts, hdata, can)
+    if journal is not None:
+        wal.append_intent(
+            journal, tids, vec[:journal.ts_vec.shape[-1]],
+            *wal.pad_writes(journal, hslot[:, None].to(torch.int32),
+                            hdr_ops.pack(slot_ids, cts)[:, None, :],
+                            hdata[:, None, :], can[:, None]),
+            round_no=round_no, seq=_JSEQ_PAYMENT_INS)
+        wal.append_outcome(journal, tids, can)
     return tbl, cur + can.to(torch.int32)
 
 
 def payment_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                   oracle: VectorOracle, inp: workload.PaymentInputs,
-                  rts_vec=None, active=None) -> PaymentResult:
+                  rts_vec=None, active=None, round_no=0,
+                  journal=None) -> PaymentResult:
     """One batched round of payments through SI. The pool and the vector
-    of ``st`` are updated in place."""
+    of ``st`` are updated in place, and so is ``journal`` when given."""
     batch = _payment_batch(cfg, lay, inp, active)
     out = si.run_round(st.nam.table, oracle, st.nam.oracle_state, batch,
                        lambda rh, rd, vec: _payment_new_data(rd, inp),
                        rts_vec=rts_vec, active=active,
+                       journal=journal, journal_round=round_no,
+                       journal_seq=_JSEQ_PAYMENT,
                        fused_commit=cfg.fused_commit,
                        batched_probe=cfg.batched_probe)
     tbl, hist_cursor = _payment_insert(cfg, lay, st, oracle, out.table,
                                        out.oracle_state.vec, out.committed,
-                                       inp)
+                                       inp, round_no=round_no,
+                                       journal=journal)
     nam = st.nam._replace(table=tbl, oracle_state=out.oracle_state)
     return PaymentResult(
         state=st._replace(nam=nam, hist_cursor=hist_cursor),
         committed=out.committed, ops=out.ops, batch=batch,
-        snapshot_miss=out.snapshot_miss, vis=out.vis)
+        snapshot_miss=out.snapshot_miss, vis=out.vis, journal=journal)
 
 
 # ----------------------------------------------------- read-only queries ----
@@ -904,6 +1005,7 @@ class DeliveryResult(NamedTuple):
     batch: TxnBatch
     snapshot_miss: torch.Tensor  # bool [T]
     vis: si.VisStats
+    journal: Optional[wal.Journal] = None
 
 
 class DeliveryAux(NamedTuple):
@@ -976,16 +1078,20 @@ def _delivery_preread_ops(ops: si.OpCounts, n_active, payload_width):
 
 def delivery_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                    oracle: VectorOracle, inp: workload.DeliveryInputs,
-                   rts_vec=None, active=None) -> DeliveryResult:
+                   rts_vec=None, active=None, round_no=0,
+                   journal=None) -> DeliveryResult:
     """Deliver the oldest undelivered order of (w, d): bump the district's
     delivery cursor, stamp the order's carrier, credit the customer. The
     pre-reads locate the order; the SI round re-reads and validates the
-    district version, so a race aborts. Updates ``st`` in place."""
+    district version, so a race aborts. Updates ``st`` in place, and
+    ``journal`` when given."""
     vec = oracle.read(st.nam.oracle_state) if rts_vec is None else rts_vec
     batch, aux, found = _delivery_prepare(cfg, lay, st, vec, inp, active)
     out = si.run_round(st.nam.table, oracle, st.nam.oracle_state, batch,
                        lambda rh, rd, v: _delivery_new_data(rd, aux),
                        rts_vec=rts_vec, active=active,
+                       journal=journal, journal_round=round_no,
+                       journal_seq=_JSEQ_DELIVERY,
                        fused_commit=cfg.fused_commit,
                        batched_probe=cfg.batched_probe)
     nam = st.nam._replace(table=out.table, oracle_state=out.oracle_state)
@@ -994,7 +1100,120 @@ def delivery_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     return DeliveryResult(
         state=st._replace(nam=nam), committed=out.committed,
         delivered=out.committed & found, ops=ops, batch=batch,
-        snapshot_miss=out.snapshot_miss, vis=out.vis)
+        snapshot_miss=out.snapshot_miss, vis=out.vis, journal=journal)
+
+
+# ------------------------------------------- §6.2 failure injection ----------
+class FailureInjector(NamedTuple):
+    """Kill memory server ``dead_server`` at the start of round
+    ``kill_round`` of :func:`run_mixed_rounds` (§6.2): its memory is lost;
+    the system restores the last checkpoint, replays the surviving
+    journals, releases abandoned locks and resumes. ``in_flight`` also
+    simulates the §3.2 crash window: the round's new-order lanes have
+    locked their write-sets and logged their intents when the failure hits,
+    and their outcomes never land; the driver re-executes the round after
+    the recovery with the same draw."""
+    kill_round: int
+    dead_server: int = 0
+    in_flight: bool = True
+
+
+class RecoveryReport(NamedTuple):
+    """What one §6.2 recovery did (on ``MixedRunStats.recovery``)."""
+    kill_round: int
+    dead_server: int
+    checkpoint_round: int    # round after which the restored ckpt was taken
+    replayed_entries: int    # committed journal entries re-installed
+    undetermined: int        # intent-without-outcome entries replay skipped
+    released_locks: int      # abandoned locks the monitor released
+    recovery_seconds: float  # wall clock: halt to workload resumed
+
+
+def _mem_state(st: TPCCState, jnl: wal.Journal):
+    """What a checkpoint covers: the pool, the vector and the journal's
+    append counts at the cut (``used``, replay's ``since``)."""
+    return {"table": st.nam.table, "vec": st.nam.oracle_state.vec,
+            "used": jnl.used}
+
+
+def _inflight_intents(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                      jnl: wal.Journal, inp: workload.MixedInputs,
+                      round_no: int):
+    """The crash window, in place: the round's new-order lanes (of the
+    merged inputs ``inp``) lock their write-sets and log their intents;
+    the failure hits before any outcome lands."""
+    batch, _ = _neworder_batch(cfg, lay, inp.neworder, inp.txn_type == 0)
+    tbl = st.nam.table
+    RS = batch.read_slots.shape[1]
+    wref = batch.write_ref.clamp(0, RS - 1).to(torch.int64)
+    wslots = batch.read_slots.gather(1, wref)
+    req_active = batch.write_mask.reshape(-1)
+    req_slots = wslots.reshape(-1)
+    # at a round boundary nothing is locked: every arbitration winner locks
+    expected = tbl.cur_hdr[gidx(torch.where(req_active, req_slots, 0),
+                                tbl.n_records)]
+    prio = batch.tid[:, None].expand(batch.write_mask.shape).reshape(-1)
+    cas.arbitrate(tbl.cur_hdr, req_slots, expected, prio, req_active)
+    # the intent lands on every replica, the outcome never does; the
+    # payload is irrelevant, since these entries never replay
+    wal.append_intent(
+        jnl, batch.tid, st.nam.oracle_state.vec[:jnl.ts_vec.shape[-1]],
+        *wal.pad_writes(jnl, wslots,
+                        torch.zeros(wslots.shape + (2,), dtype=torch.int32,
+                                    device=wslots.device),
+                        torch.zeros(wslots.shape + (WIDTH,),
+                                    dtype=torch.int32, device=wslots.device),
+                        batch.write_mask),
+        round_no=round_no, seq=_JSEQ_NEWORDER)
+
+
+def recover_from_failure(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                         engine, jnl: wal.Journal, checkpoint_dir: str,
+                         failure: FailureInjector, *, use_gc: bool,
+                         move_versions: bool = True):
+    """§6.2 recovery of the one memory server: restore the last checkpoint
+    onto the state's device, replay the surviving journal replica onto it
+    (ordered by the logged T, the version mover at round boundaries),
+    rebuild the vector from the checkpoint's and the commit records,
+    release abandoned locks, re-replicate the journal (in place).
+    ``engine`` is the reference's mesh engine, which waits for the sharded
+    store (Slice D): only ``None`` is taken. Returns ``(state,
+    RecoveryReport)``; the state holds the restored tensors."""
+    if engine is not None:
+        raise NotImplementedError(
+            "recovery over a memory-server mesh needs the sharded store "
+            "(Slice D); only the single-shard engine=None is ported")
+    t0 = time.perf_counter()
+    dead = failure.dead_server
+    n_rep = jnl.n_replicas
+    survivors = torch.ones((n_rep,), dtype=torch.bool)
+    survivors[dead % n_rep] = False
+    rep = 0 if dead % n_rep else 1    # first surviving replica
+
+    ckpt, _, manifest = snapshot.restore(checkpoint_dir, _mem_state(st, jnl))
+    since = ckpt["used"]
+    tbl = wal.replay(jnl, ckpt["table"], survivors=survivors, since=since,
+                     reuse_only=use_gc, move_versions=move_versions)
+    vec = wal.replay_vector(jnl, ckpt["vec"], survivors=survivors,
+                            since=since)
+    replayable, undetermined = wal.entry_status(jnl, rep, since=since)
+    n_locked = int(hdr_ops.is_locked(tbl.cur_hdr).sum())
+    # the monitor scans every thread's journal: any unresolved intent in
+    # the live window marks an abandoned transaction whose locks must go
+    wal.release_abandoned_locks(
+        jnl, tbl, torch.arange(cfg.n_threads, device=jnl.used.device),
+        replica=rep)
+    wal.rereplicate(jnl, survivors)
+    st = st._replace(nam=st.nam._replace(
+        table=tbl, oracle_state=st.nam.oracle_state._replace(vec=vec)))
+    report = RecoveryReport(
+        kill_round=failure.kill_round, dead_server=dead,
+        checkpoint_round=int(manifest["extra"].get("round", -1)),
+        replayed_entries=int(replayable.sum()),
+        undetermined=int(undetermined.sum()),
+        released_locks=n_locked - int(hdr_ops.is_locked(tbl.cur_hdr).sum()),
+        recovery_seconds=time.perf_counter() - t0)
+    return st, report
 
 
 # ----------------------------------------------------- mixed-round driver ----
@@ -1015,8 +1234,9 @@ class MixedRunStats(NamedTuple):
     contention_aborts: dict = None
     ovf_reads: dict = None      # reads served by the overflow region
     gc_sweeps: int = 0
-    reclaim_traj: tuple = ()
+    reclaim_traj: tuple = ()    # ((round, reclaimable_fraction), ...)
     ovf_peak: int = 0           # max overflow ring position observed
+    recovery: tuple = ()        # (RecoveryReport, ...), one a failure
 
 
 def _check_layout_homes(cfg: TPCCConfig, lay: TPCCLayout, home_w,
@@ -1041,6 +1261,11 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                      n_rounds: int, *, home_w=None,
                      locality_mode: Optional[str] = None,
                      move_versions: bool = True, stock_last_n: int = 8,
+                     gc_interval: int = 0, max_txn_time: int = 4,
+                     gc_snapshots: int = 8,
+                     journal: Optional[wal.Journal] = None,
+                     checkpoint_dir: Optional[str] = None,
+                     failure: Optional[FailureInjector] = None,
                      device=None):
     """Closed-loop driver for the full TPC-C mix on one memory server.
 
@@ -1056,7 +1281,22 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     draws were pinned to. ``device`` (default ``cuda``) must be where
     ``st`` lives.
 
-    Returns ``(state, MixedRunStats)``; the pool is updated in place.
+    ``gc_interval``, ``max_txn_time`` and ``gc_snapshots`` are the §5.3
+    knobs of :func:`run_neworder_rounds`: one GC sweep every
+    ``gc_interval`` rounds, after all five sub-rounds. ``journal`` turns
+    the §6.2 WAL on: every write sub-round logs its intents before it
+    installs and its outcomes after the decision, in place.
+    ``checkpoint_dir`` then checkpoints the pool, the vector and the
+    journal's cursors before round 0 and after every GC sweep, so replay
+    never spans a truncation. ``failure`` kills the memory server at the
+    start of its ``kill_round`` and runs :func:`recover_from_failure`
+    before the round; the reports are ``MixedRunStats.recovery``. With
+    ``failure.in_flight`` the driver calls ``draw(kill_round)`` twice (the
+    crash window, then the round itself), so ``draw`` must be a pure
+    function of the round: the driver raises if the two draws differ.
+
+    Returns ``(state, MixedRunStats)``; the pool is updated in place (after
+    a recovery, the returned state holds the restored tensors).
     """
     dev = resolve_device(device)
     if st.nam.table.cur_hdr.device.type != dev.type:
@@ -1074,6 +1314,17 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     delivered, ovf_peaks, local = [], [], []
     pending_type = torch.full((T,), -1, dtype=torch.int32, device=dev)
     pending = None
+    use_gc = gc_interval > 0
+    gc_log = _gc_init(oracle, gc_interval, gc_snapshots, dev)
+    reclaim_traj, recovery = [], []
+    jnl = journal
+    if failure is not None and (jnl is None or checkpoint_dir is None):
+        raise ValueError("failure injection needs a journal and a "
+                         "checkpoint_dir: §6.2 recovery replays the "
+                         "surviving journals onto the last checkpoint")
+    if jnl is not None and checkpoint_dir is not None:
+        snapshot.save(checkpoint_dir, _mem_state(st, jnl),
+                      extra={"round": -1})
 
     def acc(name, act, committed, ops, snap_miss=None, vis=None):
         zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1095,7 +1346,23 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                 .to(torch.float64), mask.sum().to(torch.float64)]))
 
     for r in range(n_rounds):
-        inp = _merge_retries(pending, draw(r), pending_type >= 0, T)
+        crash_draw = None
+        if failure is not None and r == failure.kill_round:
+            if failure.in_flight:
+                crash_draw = draw(r)
+                _inflight_intents(cfg, lay, st, jnl, _merge_retries(
+                    pending, crash_draw, pending_type >= 0, T), r)
+            st, rep = recover_from_failure(
+                cfg, lay, st, None, jnl, checkpoint_dir, failure,
+                use_gc=use_gc, move_versions=move_versions)
+            recovery.append(rep)
+        fresh = draw(r)
+        if crash_draw is not None and not _same_inputs(crash_draw, fresh):
+            raise ValueError(
+                f"draw({r}) gave other inputs on its second call: with "
+                f"an in-flight failure draw must be a pure function of "
+                f"the round")
+        inp = _merge_retries(pending, fresh, pending_type >= 0, T)
         ttype = inp.txn_type
         n_of = torch.bincount(ttype.to(torch.int64),
                               minlength=len(names)).tolist()
@@ -1105,7 +1372,7 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         if n_of[0]:
             act = ttype == 0
             out = neworder_round(cfg, lay, st, oracle, inp.neworder,
-                                 round_no=r, active=act)
+                                 round_no=r, active=act, journal=jnl)
             st = out.state
             aborted |= acc("neworder", act, out.committed, out.ops,
                            out.snapshot_miss, out.vis)
@@ -1114,7 +1381,7 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         if n_of[1]:
             act = ttype == 1
             pay = payment_round(cfg, lay, st, oracle, inp.payment,
-                                active=act)
+                                active=act, round_no=r, journal=jnl)
             st = pay.state
             aborted |= acc("payment", act, pay.committed, pay.ops,
                            pay.snapshot_miss, pay.vis)
@@ -1123,7 +1390,7 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         if n_of[3]:
             act = ttype == 3
             dl = delivery_round(cfg, lay, st, oracle, inp.delivery,
-                                active=act)
+                                active=act, round_no=r, journal=jnl)
             st = dl.state
             aborted |= acc("delivery", act, dl.committed, dl.ops,
                            dl.snapshot_miss, dl.vis)
@@ -1150,7 +1417,15 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         pending_type = torch.where(aborted, ttype, -1)
         pending = inp
         if move_versions:
-            mvcc.version_mover(st.nam.table)
+            mvcc.version_mover(st.nam.table, reuse_only=use_gc)
+        if use_gc and (r + 1) % gc_interval == 0:
+            frac = _gc_sweep(lay, st, gc_log, r, max_txn_time)
+            reclaim_traj.append((r, frac))
+            if jnl is not None and checkpoint_dir is not None:
+                # a checkpoint at every sweep: replay from the last one
+                # never spans a truncation
+                snapshot.save(checkpoint_dir, _mem_state(st, jnl),
+                              extra={"round": r})
         ovf_peaks.append(st.nam.table.ovf_next.max())
 
     attempts, commits, retries = {}, {}, {}
@@ -1181,9 +1456,17 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         delivered=int(torch.stack(delivered).sum()) if delivered else 0,
         snapshot_misses=snapshot_misses,
         contention_aborts=contention_aborts, ovf_reads=ovf_reads,
+        gc_sweeps=len(reclaim_traj), reclaim_traj=tuple(reclaim_traj),
         ovf_peak=max([0] + torch.stack(ovf_peaks).tolist())
-        if ovf_peaks else 0)
+        if ovf_peaks else 0, recovery=tuple(recovery))
     return st, stats
+
+
+def _same_inputs(a, b) -> bool:
+    """Whether two (nested) NamedTuples of tensors hold equal values."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(_same_inputs(x, y) for x, y in zip(a, b))
 
 
 # extra conflict-free extend installs per commit, invisible to OpCounts:

@@ -164,6 +164,39 @@ def probe_chain_case(seed, n_ts=4, R=300, n_buckets=256, n_keys=230):
             fallback, lane_keys, key_mask)
 
 
+def hash_probe_edge_case(seed, n_buckets, R=48):
+    """A directory for the tile probe's edges over ``_probe_table`` rows:
+    keys placed by ``hashtable.insert`` (at load 0.7, every bucket with one
+    bucket), then values rewritten to invalidated entries (< 0) and to
+    values at or past R, and empty buckets given valid values (the key
+    0xFFFFFFFF is stored as 0 and hits the first empty bucket, as in the
+    reference). With few buckets the windows wrap onto themselves; at 64
+    chains cross the end of the array. Queries are stored keys, absent keys
+    and 0xFFFFFFFF. Returns what :func:`probe_case` does (every lane a
+    query)."""
+    rng = np.random.RandomState(seed + 300)
+    tbl, ts = _probe_table(seed, R=R)
+    n_keys = max(1, int(0.7 * n_buckets))
+    keys = (rng.randint(1, 1 << 31, n_keys).astype(np.uint32) * 2 + 1)
+    d, placed = tht.insert(tht.init(n_buckets, device="cpu"), _t(keys),
+                           _t(rng.randint(0, R, n_keys).astype(np.int32)),
+                           max_probes=n_buckets)
+    assert (placed >= 0).all()
+    dk, dv = d.keys.numpy().view(np.uint32).copy(), d.vals.numpy().copy()
+    dv[(dk != 0) & (rng.rand(n_buckets) < 0.25)] = -3          # invalidated
+    dv[(dk != 0) & (rng.rand(n_buckets) < 0.25)] = R + 2       # past R
+    dv[dk == 0] = rng.randint(0, R, int((dk == 0).sum()))
+    Q = 96
+    lane_keys = keys[rng.randint(0, n_keys, Q)]
+    lane_keys[rng.rand(Q) < 0.2] = np.uint32(0xDEADBEEF)       # absent
+    lane_keys[::11] = np.uint32(0xFFFFFFFF)                    # key+1 wraps
+    return (dk, dv, tbl, ts, np.zeros(Q, np.int32), lane_keys,
+            np.ones(Q, bool))
+
+
+HASH_PROBE_EDGES = [(n, mp) for n in (1, 3, 15, 64) for mp in (1, 17, 32)]
+
+
 def probe_distance(case):
     """Buckets each keyed lane's walk reads before its key or an empty
     bucket (the chain length the kernel's windows must cover)."""
@@ -199,7 +232,7 @@ def port_hash_probe(fn, case, device="cpu", max_probes=32):
               _t(ts, device), _t(lk, device), max_probes=max_probes)
 
 
-def check_hash_probe_gather(case, out, device="cpu"):
+def check_hash_probe_gather(case, out, device="cpu", max_probes=32):
     """``mvcc.gather_version`` over the locator equals ``lookup`` +
     ``read_visible`` on every found lane, and a miss is slot -1 with
     src = pos = 0."""
@@ -210,7 +243,7 @@ def check_hash_probe_gather(case, out, device="cpu"):
         table, torch.where(found, slot, 0),
         tmvcc.VersionLoc(found=found, src=src, pos=pos))
     vals, kfound = tht.lookup(tht.HashTable(_t(dk, device), _t(dv, device)),
-                              _t(lk, device), max_probes=32)
+                              _t(lk, device), max_probes=max_probes)
     vr = tmvcc.read_visible(table, torch.where(kfound, vals, 0),
                             _t(ts, device))
     assert torch.equal(found, kfound & vr.found)
@@ -436,6 +469,51 @@ def test_hash_probe_kernel_matches_plain_on_card(seed):
     _assert_leaves_equal(port_hash_probe(hash_probe_ref, case), ker,
                          PROBE_OUT)
     check_hash_probe_gather(case, ker, dev)
+
+
+def check_hash_probe_edges(n_buckets, max_probes, out):
+    """What :func:`hash_probe_edge_case` must reach, on a plain or kernel
+    output: misses everywhere, and with a directory larger than one window
+    and a full probe budget, 0xFFFFFFFF found, values past R read as the
+    last record, and every region of the resolution."""
+    slot, found, src = (x.cpu().numpy() for x in out[:3])
+    assert (slot == -1).any()
+    if n_buckets == 64 and max_probes == 32:
+        assert found[::11].any()                      # 0xFFFFFFFF hit
+        assert (found & (slot >= 48)).any()           # value past R
+        assert {0, 1, 2} <= set(src[found].tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_buckets,max_probes", HASH_PROBE_EDGES)
+def test_hash_probe_kernel_edges_on_card(n_buckets, max_probes):
+    """The tile probe on 1, 3, 15 and 64 buckets at 1, 17 and 32 probes:
+    hit precedence for 0xFFFFFFFF, self-wrapping and partial windows,
+    invalidated entries, values at or past R, all three regions."""
+    dev = _cuda()
+    case = hash_probe_edge_case(0, n_buckets)
+    ker = port_hash_probe(probe_ops.hash_probe, case, dev,
+                          max_probes=max_probes)
+    torch.cuda.synchronize()
+    _assert_leaves_equal(port_hash_probe(hash_probe_ref, case,
+                                         max_probes=max_probes), ker,
+                         PROBE_OUT)
+    check_hash_probe_gather(case, ker, dev, max_probes=max_probes)
+    check_hash_probe_edges(n_buckets, max_probes, ker)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hash_probe_kernel_long_chains_on_card(seed):
+    """The batched probe's long-chain case through the single-key kernel:
+    chains past one window, cut inside, at and past a window."""
+    dev = _cuda()
+    case = probe_chain_case(seed)
+    for mp in (3, 16, 17, 64):
+        ker = port_hash_probe(probe_ops.hash_probe, case, dev, max_probes=mp)
+        torch.cuda.synchronize()
+        _assert_leaves_equal(port_hash_probe(hash_probe_ref, case,
+                                             max_probes=mp), ker, PROBE_OUT)
 
 
 @pytest.mark.gpu
@@ -717,6 +795,52 @@ def test_mixed_rounds_kernels_match_plain_path_on_card():
     assert stats.total_commits > 0
     _assert_leaves_equal(_leaves(cpu_st), _leaves(st),
                          [str(i) for i in range(len(_leaves(st)))])
+
+
+@pytest.mark.gpu
+def test_durable_mix_kernels_match_plain_path_on_card(tmp_path):
+    """A journalled, checkpointed mix with the GC thread on, killed at
+    round 3 with intents in flight and recovered, through both kernels on
+    the card: state, journal, statistics and the recovery report (but its
+    seconds) equal the same run on the plain path on the CPU."""
+    dev = _cuda()
+    cfg = tpcc.TPCCConfig(n_warehouses=2, customers_per_district=8,
+                          n_items=64, n_threads=16, orders_per_thread=16,
+                          dist_degree=50.0, key_addressed=True,
+                          fused_commit=True, batched_probe=True)
+    plain = tpcc.TPCCConfig(**{**cfg.__dict__, "fused_commit": False,
+                               "batched_probe": False})
+    oracle = VectorOracle(cfg.n_threads)
+    lay, st = tpcc.init_tpcc(cfg, oracle, device=dev)
+    cpu_st = _to(st, "cpu")
+    draw = workload.mixed_stream(cfg, torch.Generator().manual_seed(5))
+    draws = [draw(r) for r in range(6)]
+    kw = dict(gc_interval=2, max_txn_time=1,
+              failure=tpcc.FailureInjector(kill_round=3))
+    n = (probe_ops.batched_probe.launches, commit_ops.fused_commit.launches)
+    jnl = tpcc.make_journal(cfg, oracle, capacity_rounds=8, device=dev)
+    st, stats = tpcc.run_mixed_rounds(
+        cfg, lay, st, oracle, lambda r: _to(draws[r], dev), 6, journal=jnl,
+        checkpoint_dir=str(tmp_path / "card"), device=dev, **kw)
+    launched = (probe_ops.batched_probe.launches - n[0],
+                commit_ops.fused_commit.launches - n[1])
+    cpu_jnl = tpcc.make_journal(cfg, oracle, capacity_rounds=8,
+                                device="cpu")
+    cpu_st, cpu_stats = tpcc.run_mixed_rounds(
+        plain, lay, cpu_st, oracle, lambda r: draws[r], 6, journal=cpu_jnl,
+        checkpoint_dir=str(tmp_path / "cpu"), device="cpu", **kw)
+    assert launched[0] > 0 and launched[1] > 0
+    for f in cpu_stats._fields:
+        if f not in ("local_fraction", "recovery"):
+            assert getattr(stats, f) == getattr(cpu_stats, f), f
+    (rep,), (cpu_rep,) = stats.recovery, cpu_stats.recovery
+    assert rep._replace(recovery_seconds=0) \
+        == cpu_rep._replace(recovery_seconds=0)
+    assert rep.checkpoint_round == 1 and rep.undetermined > 0
+    assert stats.gc_sweeps == 3 and stats.total_commits > 0
+    _assert_leaves_equal(_leaves(cpu_st), _leaves(st),
+                         [str(i) for i in range(len(_leaves(st)))])
+    _assert_leaves_equal(cpu_jnl, jnl, cpu_jnl._fields)
 
 
 def _to(x, device):

@@ -7,6 +7,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core import gc
 from repro_torch.core.tsoracle import VectorOracle
 from repro_torch.db import tpcc
 from repro_torch.kernels import _build
@@ -46,6 +47,10 @@ def test_entry_points_refuse_to_run_on_the_cpu_silently(monkeypatch):
         tpcc.run_neworder_rounds(cfg, lay, st, oracle, lambda r: None, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpcc.run_mixed_rounds(cfg, lay, st, oracle, lambda r: None, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpcc.make_journal(cfg, oracle, capacity_rounds=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gc.init_log(2, oracle.n_slots)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -26,11 +26,12 @@ from repro_torch.kernels.hash_probe import ops as probe_ops
 from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
     hash_probe_ref
 
-from test_torch_gpu import (COMMIT_OUT, PROBE_OUT, check_hash_probe_gather,
+from test_torch_gpu import (COMMIT_OUT, HASH_PROBE_EDGES, PROBE_OUT,
+                            check_hash_probe_edges, check_hash_probe_gather,
                             check_lattice, commit_case, flat_commit,
-                            port_commit, port_hash_probe, port_probe,
-                            port_table, probe_case, probe_chain_case,
-                            probe_distance, _t)
+                            hash_probe_edge_case, port_commit,
+                            port_hash_probe, port_probe, port_table,
+                            probe_case, probe_chain_case, probe_distance, _t)
 
 
 def _assert_leaves_equal(ref, port, names):
@@ -135,6 +136,37 @@ def test_hash_probe_matches_pallas_interpret():
         jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
         jnp.asarray(lk), max_probes=32, bq=32, interpret=True)
     _assert_leaves_equal(ker, port_hash_probe(probe_ops.hash_probe, case),
+                         PROBE_OUT)
+
+
+@pytest.mark.parametrize("n_buckets,max_probes", HASH_PROBE_EDGES)
+def test_hash_probe_ref_edges_match_reference(n_buckets, max_probes):
+    """The card tests' edge cases of the tile probe (1, 3, 15 and 64
+    buckets at 1, 17 and 32 probes): the port's plain version equals the
+    reference's, and the cases reach what the card tests rely on."""
+    case = hash_probe_edge_case(0, n_buckets)
+    dk, dv, tbl, ts, fb, lk, km = case
+    ref = jprobe_ref.hash_probe_ref(
+        jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
+        jnp.asarray(lk), max_probes=max_probes)
+    port = port_hash_probe(hash_probe_ref, case, max_probes=max_probes)
+    _assert_leaves_equal(ref, port, PROBE_OUT)
+    check_hash_probe_gather(case, port, max_probes=max_probes)
+    check_hash_probe_edges(n_buckets, max_probes, port)
+
+
+@pytest.mark.parametrize("n_buckets,max_probes", [(3, 17), (64, 32)])
+def test_hash_probe_edges_match_pallas_interpret(n_buckets, max_probes):
+    """Two edge cases through the reference's Pallas kernel in interpret
+    mode: a directory smaller than the probe budget, and the 64-bucket
+    one."""
+    case = hash_probe_edge_case(0, n_buckets)
+    dk, dv, tbl, ts, fb, lk, km = case
+    ker = jprobe_ops.hash_probe(
+        jnp.asarray(dk), jnp.asarray(dv), _jax_table(tbl), jnp.asarray(ts),
+        jnp.asarray(lk), max_probes=max_probes, bq=32, interpret=True)
+    _assert_leaves_equal(ker, port_hash_probe(probe_ops.hash_probe, case,
+                                              max_probes=max_probes),
                          PROBE_OUT)
 
 

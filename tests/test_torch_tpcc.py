@@ -122,6 +122,35 @@ def test_neworder_rounds_match_reference(name, monkeypatch):
     assert pstats.commits > 0 and pstats.retries > 0
 
 
+@pytest.mark.parametrize("name,gc_interval", [("slot_addressed", 1),
+                                              ("key_addressed_kernels", 2)])
+def test_neworder_rounds_with_gc_match_reference(name, gc_interval):
+    """Sustained new-order with the §5.3 GC thread on (sweeps, a reclaimed-
+    slot-only mover, a log of 3 snapshots): outcomes, every statistic
+    (``gc_sweeps`` and ``reclaim_traj`` included) and the state."""
+    jcfg, cfg = _configs(name)
+    lay, jst = jtpcc.init_tpcc(jcfg, JOracle(jcfg.n_threads),
+                               jax.random.PRNGKey(0))
+    pst = convert.tpcc_state_from_numpy(jax.tree.map(np.asarray, jst), "cpu")
+    n = 6
+    gc = dict(gc_interval=gc_interval, max_txn_time=1, gc_snapshots=3)
+    jst, js = jtpcc.run_neworder_rounds(
+        jcfg, lay, jst, JOracle(jcfg.n_threads), jax.random.PRNGKey(4), n,
+        **gc)
+    draws = _draws(jcfg, 4, n)
+    pst, ps = tpcc.run_neworder_rounds(
+        cfg, lay, pst, VectorOracle(cfg.n_threads), lambda r: draws[r], n,
+        device="cpu", **gc)
+    _eq(js.committed, ps.committed, "committed")
+    _eq(js.missed, ps.missed, "missed")
+    for f in ps._fields:
+        if f not in ("committed", "missed", "local_fraction"):
+            assert getattr(js, f) == getattr(ps, f), f
+    assert ps.gc_sweeps == n // gc_interval == len(ps.reclaim_traj)
+    assert all(0 < frac < 1 for _, frac in ps.reclaim_traj)
+    _eq_state(jst, pst)
+
+
 @pytest.mark.parametrize("layout", ["table_major", "warehouse_major"])
 def test_directory_and_loader_match_reference(layout):
     """``build_tpcc_directory`` equals the reference's; ``init_tpcc``'s
