@@ -4,7 +4,8 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py [--rounds 32] [--mix-rounds 32] [--probe-rounds 8]
                           [--seed 0] [--profile-rounds 4] [--lm-reps 20]
-                          [--durable-rounds 8]
+                          [--durable-rounds 8] [--shards 4]
+                          [--shard-rounds 8]
 
 Phases, each fatal on failure:
 
@@ -96,7 +97,35 @@ Phases, each fatal on failure:
    prints each checkpoint save's bytes and seconds, the restore and replay
    seconds, ``recovery_seconds``, each sweep's device time and the
    durable round's median beside phase 5's, each beside the card's name
-   and power limit.
+   and power limit;
+10. the sharded store: NAM-DB §7's deployment of 50 warehouses and 60
+   threads a memory server on ``--shards`` (S, default 4) servers, the
+   servers a leading shard axis of one padded pool on the card
+   (``store.distributed_round``), the vector partitioned over them, with
+   the pool's size reckoned from the catalog first. (a) ``--shard-rounds``
+   (n) full-mix rounds over the servers with both kernels (a locate-only
+   ``batched_probe`` launch a server, and ``fused_commit``'s decide and
+   apply launch a server, in every new-order, payment and delivery
+   sub-round: counted and checked), a GC sweep every 2 rounds (E = 1) and
+   a journal of a replica a server, against the same draws over the
+   servers on the plain path and through the single-server driver with and
+   without the kernels on the unpadded pool: every sub-round's outcomes,
+   every statistic, every journal leaf and the final state (trimmed to the
+   real records) must be identical, and some transactions must commit;
+   then one more new-order round whose kernel calls are kept, so that each
+   server's probe, decide and apply launch is held against its plain twin
+   (the decide launch must write nothing) and timed with CUDA events beside
+   the single-server ``fused_commit`` of a round at the same scale, and
+   two rounds of each engine are profiled (CUDA launches and host
+   synchronisations a round). (b) The same run, checkpointed, killed at
+   round ``(n // 2) | 1`` with intents in flight on server S − 1, whose
+   view and journal replica are overwritten before the recovery: the final
+   state, the statistics and the resolved journal entries must equal (a),
+   the replicas must be equal after ``rereplicate`` and some intent
+   undetermined. (c) The same run born on S / 2 servers and grown to S at
+   round 3 must equal (a), and its report must show moved slots and
+   buckets. It prints each sub-phase's seconds, ``recovery_seconds`` and
+   ``migration_seconds``, each beside the card's name and power limit.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -123,10 +152,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch._u32 import rows_of, to_i32, u64  # noqa: E402
 from repro_torch.checkpoint import snapshot  # noqa: E402
-from repro_torch.core import gc as gc_ops, wal  # noqa: E402
+from repro_torch.core import gc as gc_ops, store, wal  # noqa: E402
 from repro_torch.core import hashtable as ht, mvcc  # noqa: E402
 from repro_torch.core import header as hdr_ops  # noqa: E402
 from repro_torch.core.tsoracle import VectorOracle  # noqa: E402
+from repro_torch.core.tsoracle import PartitionedVectorOracle  # noqa: E402
 from repro_torch.db import tpcc, workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.commit import ops as commit_ops  # noqa: E402
@@ -360,19 +390,21 @@ def hash_probe_work(args, kw, out):
 
 
 def commit_work(args, out):
-    """Bytes the fused commit must move on these inputs: the request and
-    transaction inputs, the header, counter and ring victim of every active
-    request, the headers and payload rows of every install (the new row
-    read, the current row read, the ring and current rows written), the
-    vector slots and the outputs."""
+    """Bytes the fused commit must move on these inputs: each request's
+    slot, priority, transaction, active flag and two output flags; the
+    expected header and the header, ring counter and ring victim of each
+    active request; the new header and the payload rows of each install
+    (the new row read, the current row read, the ring and current rows
+    written, two headers and the counter written); each transaction's
+    inputs, outputs and vector slot."""
     (table, vec, slots, exp, prio, act, txn, new_hdr, new_data, txn_ok,
      txn_slot, cts, ext) = args
     Q, T, W = slots.shape[0], txn_ok.shape[0], new_data.shape[1]
     n_act = int(act.sum())
     n_inst = int(out.do_install.sum())
-    n_bytes = Q * 29 + T * 13 + n_act * 20 + n_inst * (20 + 16 * W) \
-        + T * 8 + Q * 2 + T * 5
-    words = Q * 7 + n_act * 5 + n_inst * (5 + 4 * W) + T * 5
+    n_bytes = Q * (13 + 2) + n_act * (8 + 20) + n_inst * (8 + 20 + 16 * W) \
+        + T * (13 + 8 + 5)
+    words = Q * 4 + n_act * 7 + n_inst * (7 + 4 * W) + T * 5
     # random accesses, one 32-byte sector each: header, counter and ring
     # victim per active request, three header writes and three payload
     # rows per install, a vector slot per transaction
@@ -408,13 +440,20 @@ WRAPPERS = {"batched_probe": (probe_ops, "batched_probe"),
             "mamba_scan": (mamba_ops, "mamba_scan")}
 
 
-def launch_counts():
-    return {n: getattr(m, f).launches for n, (m, f) in WRAPPERS.items()}
+def launch_counts(decide=False):
+    """Each kernel's launches; with ``decide`` also the decide-only ones
+    among ``fused_commit``'s (``fused_commit_decide``)."""
+    counts = {n: getattr(m, f).launches for n, (m, f) in WRAPPERS.items()}
+    if decide:
+        counts["fused_commit_decide"] = \
+            commit_ops.fused_commit.decide_launches
+    return counts
 
 
 def reset_launch_counts():
     for m, f in WRAPPERS.values():
         getattr(m, f).launches = 0
+    commit_ops.fused_commit.decide_launches = 0
 
 
 # the outcome of each sub-round of the mix, as the driver sees it
@@ -425,17 +464,28 @@ OUTCOMES = {"neworder_round": ("committed", "snapshot_miss", "o_id"),
             "stocklevel_round": ("result", "found")}
 
 
-class SubRounds:
-    """While active, wraps the mix's five round functions: each call logs
-    clones of its outcome tensors and the kernel launches it made."""
+# the mix's round functions over memory servers, by the name of their
+# single-server twin
+MESH_ROUNDS = {"neworder_round_distributed": "neworder_round",
+               "payment_round_distributed": "payment_round",
+               "delivery_round_distributed": "delivery_round",
+               "orderstatus_round": "orderstatus_round",
+               "stocklevel_round": "stocklevel_round"}
 
-    def __init__(self):
+
+class SubRounds:
+    """While active, wraps the mix's five round functions (those over the
+    memory servers with ``mesh``): each call logs, under its single-server
+    name, clones of its outcome tensors and the kernel launches it made."""
+
+    def __init__(self, mesh=False):
         self.log = []
+        self.names = MESH_ROUNDS if mesh else {n: n for n in OUTCOMES}
 
     def __enter__(self):
-        self.orig = {n: getattr(tpcc, n) for n in OUTCOMES}
+        self.orig = {n: getattr(tpcc, n) for n in self.names}
         for n, fn in self.orig.items():
-            setattr(tpcc, n, self._wrap(n, fn))
+            setattr(tpcc, n, self._wrap(self.names[n], fn))
         return self
 
     def __exit__(self, *exc):
@@ -444,9 +494,9 @@ class SubRounds:
 
     def _wrap(self, name, fn):
         def run(*a, **k):
-            before = launch_counts()
+            before = launch_counts(decide=True)
             out = fn(*a, **k)
-            after = launch_counts()
+            after = launch_counts(decide=True)
             self.log.append((name, tuple(getattr(out, f).clone()
                                          for f in OUTCOMES[name]),
                              {n: after[n] - before[n] for n in after}))
@@ -752,8 +802,8 @@ class ProbeShadow:
     def __exit__(self, *exc):
         tpcc._snapshot_read = self.orig
 
-    def _read(self, st, vec, slots, keys=None, key_mask=None):
-        out = self.orig(st, vec, slots, keys, key_mask)
+    def _read(self, st, engine, vec, slots, mask, keys=None, key_mask=None):
+        out = self.orig(st, engine, vec, slots, mask, keys, key_mask)
         if keys is not None:
             self._shadow(st, vec, keys, key_mask, out)
         return out
@@ -1674,6 +1724,501 @@ def run_durable_phase(cfg, plain_cfg, lay, st0, oracle, draws, smi):
     return launches_a, err, rounds_a, stats_a.total_commits
 
 
+# ---------------------------------------------------- sharded store ----
+def shard_config(n_shards):
+    """NAM-DB §7's deployment (``bench_tpcc_scaling.py:105-108``): 50
+    warehouses and 60 execution threads a memory server, the rest as
+    ``SLICE``."""
+    return dataclasses.replace(SLICE, n_warehouses=50 * n_shards,
+                               n_threads=60 * n_shards)
+
+
+def pool_bytes_per_record(cfg):
+    """A record's bytes in the pool: the current header and payload, K old
+    and KO overflow versions, and the two ring counters."""
+    version = 8 + 4 * tpcc.WIDTH
+    return version * (1 + cfg.n_old_versions + cfg.n_overflow) + 8
+
+
+def unplaced(st, R, n_slots):
+    """``st`` trimmed to the real records and vector slots (views)."""
+    nam = st.nam
+    return st._replace(nam=nam._replace(
+        table=mvcc.VersionedTable(*(t[:R] for t in nam.table)),
+        oracle_state=nam.oracle_state._replace(
+            vec=nam.oracle_state.vec[:n_slots])))
+
+
+class KernelCalls:
+    """While active, keeps the arguments of every ``batched_probe`` and
+    ``fused_commit`` call (tensors by reference) and, before each commit
+    call, the rows of its table its requests touch (and, once, the
+    vector), so :meth:`restore` puts the round's commit state back."""
+
+    def __enter__(self):
+        self.probes, self.decides, self.applies, self.saved = [], [], [], []
+        self.vec = None
+        self.orig = probe_ops.batched_probe, commit_ops.fused_commit
+
+        def probe(*a, **k):
+            self.probes.append((a, k))
+            return self.orig[0](*a, **k)
+
+        def commit(*a, **k):
+            table, vec = a[0], a[1]
+            touched = torch.where(a[5], a[2], 0).long()
+            self.saved.append((table, touched,
+                               [t[touched].clone() for t in table[:5]]))
+            if self.vec is None:
+                self.vec = (vec, vec.clone())
+            (self.decides if k.get("decide_only") else self.applies).append(
+                (a, k))
+            return self.orig[1](*a, **k)
+
+        probe_ops.batched_probe, commit_ops.fused_commit = probe, commit
+        return self
+
+    def __exit__(self, *exc):
+        probe_ops.batched_probe, commit_ops.fused_commit = self.orig
+
+    def restore(self):
+        for table, touched, rows in self.saved:
+            for t, r in zip(table[:5], rows):
+                t.index_copy_(0, touched, r)
+        self.vec[0].copy_(self.vec[1])
+
+
+def decide_work(args):
+    """Bytes the decide-only launch must move: each request's slot,
+    priority, transaction and active flag; the expected header and the
+    header, ring counter and ring victim of each active request; the
+    failure counts written. It reads no transaction input and no payload."""
+    Q, T = args[2].shape[0], args[9].shape[0]
+    n_act = int(args[5].sum())
+    return Q * 13 + n_act * (8 + 20) + T * 4, Q * 4 + n_act * 7 + T, \
+        3 * n_act
+
+
+def active_lanes(a):
+    """A ``fused_commit`` call's arguments with its active requests only,
+    in their order (so each slot elects the same request): a lane that is
+    not active bids, counts and writes nothing, so the launch decides and
+    writes what the full-width one does. Every server's launch spans all
+    the round's requests, the other servers' lanes inactive."""
+    i = torch.nonzero(a[5]).squeeze(1)
+    return tuple(a[:2]) + tuple(x[i] for x in a[2:9]) + tuple(a[9:])
+
+
+def mesh_kernel_records(calls, smi, n_time=100):
+    """Each server's probe, decide and apply launch of the kept round held
+    against its plain twin (the decide launch must write nothing) and
+    timed, and each commit launch again on its active lanes alone (held
+    to the full-width result); returns ``{name: (max_abs_err, (ms,
+    host_ms, plain_ms, work), extra)}`` with the times the mean over the
+    servers, ``extra`` the lane counts and the active-lane times."""
+    S = len(calls.decides)
+    check(len(calls.probes) == S == len(calls.applies),
+          f"the kept round made {len(calls.probes)} probe, {S} decide and "
+          f"{len(calls.applies)} apply calls")
+    out = {}
+    errs, times = [], []
+    for a, k in calls.probes:
+        ker = probe_ops.batched_probe(*a, **k)
+        plain = probe_ref.batched_probe_ref(*a, **k)
+        torch.cuda.synchronize()
+        errs.append(same(ker, plain, "batched_probe (mesh, locate-only)"))
+        launch = probe_ops.prepare(*a, **k)
+        times.append((time_events(launch, n_time, hold=True),
+                      time_host(launch, 20),
+                      time_events(lambda: probe_ref.batched_probe_ref(
+                          *a, **k), 10),
+                      probe_work(a, k, plain)))
+    out["batched_probe"] = (max(errs), times)
+    narrow = {"decide": [], "apply": []}
+
+    errs, times = [], []
+    for (a, k), (table, touched, _) in zip(calls.decides, calls.saved):
+        calls.restore()
+        before = [t[touched].clone() for t in table[:5]] + [a[1].clone()]
+        ker = commit_ops.fused_commit(*a, decide_only=True)
+        torch.cuda.synchronize()
+        after = [t[touched] for t in table[:5]] + [a[1]]
+        check(all(torch.equal(x, y) for x, y in zip(before, after)),
+              "a decide-only launch wrote the table or the vector")
+        check(ker.granted is None and ker.do_install is None,
+              "a decide-only launch returned a decision")
+        plain = commit_ref.fused_commit_ref(*a, decide_only=True)
+        errs.append(same(ker.fails, plain.fails, "fused_commit (decide)"))
+        launch = commit_ops.prepare(*a, decide_only=True)
+        times.append((time_events(launch, n_time, hold=True),
+                      time_host(launch, 20),
+                      time_events(lambda: commit_ref.fused_commit_ref(
+                          *a, decide_only=True), 10),
+                      decide_work(a)))
+        c = active_lanes(a)
+        same(commit_ops.fused_commit(*c, decide_only=True).fails,
+             ker.fails, "fused_commit (decide) on the active lanes alone")
+        narrow["decide"].append((c[2].shape[0], time_events(
+            commit_ops.prepare(*c, decide_only=True), n_time, hold=True)))
+    out["decide"] = (max(errs), times)
+
+    errs, times = [], []
+    for a, k in calls.applies:
+        calls.restore()
+        table, touched = a[0], torch.where(a[5], a[2], 0).long()
+
+        def state():
+            return [t[touched].clone() for t in table[:5]] + [a[1].clone()]
+        ker = commit_ops.fused_commit(*a)
+        torch.cuda.synchronize()
+        ker_state = state()
+        calls.restore()
+        plain = commit_ref.fused_commit_ref(*a)
+        errs.append(max(same(ker_state, state(), "fused_commit (apply) "
+                                                  "state"),
+                        same(tuple(ker[2:]), tuple(plain[2:]),
+                             "fused_commit (apply) outputs")))
+        calls.restore()
+        launch = commit_ops.prepare(*a)
+        ms = time_events(launch, max(1, n_time // 4), before=calls.restore,
+                         hold=True)
+        host_ms = time_host(launch, 20, before=calls.restore)
+        plain_ms = time_events(lambda: commit_ref.fused_commit_ref(*a), 10,
+                               before=calls.restore)
+        calls.restore()
+        times.append((ms, host_ms, plain_ms, commit_work(a, plain)))
+        c = active_lanes(a)
+        narrow["apply"].append((c[2].shape[0], compact_commit(
+            calls, a, c, ker_state, state, ker.committed, n_time)))
+    calls.restore()
+    out["apply"] = (max(errs), times)
+    for name, (_, ts) in out.items():
+        print(f"{name} (mesh), per server: " + ", ".join(
+            f"{t[0] * 1e3:.2f} us" for t in ts) + f" on the device (CUDA "
+            f"events) | {smi}")
+    for name, ns in narrow.items():
+        print(f"{name} (mesh) on the active lanes alone, per server: "
+              + ", ".join(f"{ms * 1e3:.2f} us ({q} of "
+                          f"{calls.applies[0][0][2].shape[0]} lanes)"
+                          for q, ms in ns)
+              + f" on the device (CUDA events) | {smi}")
+    mean = lambda ts, i: sum(t[i] for t in ts) / len(ts)
+    extra = {"batched_probe": dict(lanes=calls.probes[0][0][4].shape[0])}
+    for name, ns in narrow.items():
+        extra[name] = dict(lanes=calls.applies[0][0][2].shape[0],
+                           active_lanes=[q for q, _ in ns],
+                           active_lanes_ms=mean(ns, 1))
+    return {name: (err, (mean(ts, 0), mean(ts, 1), mean(ts, 2), tuple(
+        sum(t[3][j] for t in ts) // len(ts) for j in range(3))), extra[name])
+        for name, (err, ts) in out.items()}
+
+
+def compact_commit(calls, a, c, full_state, state, committed, n_time):
+    """The apply launch ``a`` again on its active lanes ``c`` alone: its
+    rows, vector and commit decisions must equal the full-width launch's
+    (``full_state``, ``committed``). Returns its time (CUDA events, rows
+    restored before every launch)."""
+    calls.restore()
+    out = commit_ops.fused_commit(*c)
+    torch.cuda.synchronize()
+    same(full_state, state(), "fused_commit (apply) on the active lanes "
+                              "alone, state")
+    same(out.committed, committed, "fused_commit (apply) on the active "
+                                   "lanes alone, decisions")
+    calls.restore()
+    ms = time_events(commit_ops.prepare(*c), max(1, n_time // 4),
+                     before=calls.restore, hold=True)
+    calls.restore()
+    return ms
+
+
+def single_commit_time(calls, n_time=100):
+    """The single-server ``fused_commit`` of the kept round (CUDA events,
+    its rows restored before every launch), at full width and on its
+    active lanes alone: ``(ms, active_lanes, active_lanes_ms)``."""
+    check(len(calls.applies) == 1, "the single-server round made "
+                                   f"{len(calls.applies)} commit calls")
+    a, _ = calls.applies[0]
+    table, touched = a[0], torch.where(a[5], a[2], 0).long()
+
+    def state():
+        return [t[touched].clone() for t in table[:5]] + [a[1].clone()]
+    calls.restore()
+    ker = commit_ops.fused_commit(*a)
+    torch.cuda.synchronize()
+    full_state = state()
+    calls.restore()
+    launch = commit_ops.prepare(*a)
+    ms = time_events(launch, max(1, n_time // 4), before=calls.restore,
+                     hold=True)
+    c = active_lanes(a)
+    return ms, c[2].shape[0], compact_commit(calls, a, c, full_state, state,
+                                             ker.committed, n_time)
+
+
+class LoseServer:
+    """While active, ``recover_from_failure`` first overwrites the dead
+    server's view of the pool and its journal replica with ``-1`` words
+    (``True`` masks): its memory is really lost."""
+
+    def __enter__(self):
+        self.orig = tpcc.recover_from_failure
+
+        def lost(cfg, lay, st, engine, jnl, ckpt, failure, **k):
+            dead = failure.dead_server
+            for t in store.shard_view(st.nam.table, dead,
+                                      engine.shard_records):
+                t.fill_(-1)
+            for f in wal.ENTRY_FIELDS:
+                x = getattr(jnl, f)
+                x[dead].fill_(True if x.dtype == torch.bool else -1)
+            return self.orig(cfg, lay, st, engine, jnl, ckpt, failure, **k)
+        tpcc.recover_from_failure = lost
+        return self
+
+    def __exit__(self, *exc):
+        tpcc.recover_from_failure = self.orig
+
+
+class KeepGrowth:
+    """While active, keeps what ``scale_out`` returns (the grown journal
+    and engine replace the caller's)."""
+
+    def __enter__(self):
+        self.orig, self.out = tpcc.scale_out, None
+
+        def keep(*a, **k):
+            self.out = self.orig(*a, **k)
+            return self.out
+        tpcc.scale_out = keep
+        return self
+
+    def __exit__(self, *exc):
+        tpcc.scale_out = self.orig
+
+
+def same_stats(a, b, what, skip=()):
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        check(f in skip or x == y or (x != x and y != y),
+              f"{what}: statistic {f} differs")
+
+
+def run_shard_phase(args, dev, smi):
+    """Phase 10 (see the module docstring). Returns ``(records,
+    launches)``: ``{name: (max_abs_err, timing)}`` of the locate-only
+    probe, the decide and the apply launch, and the launch counts of (a)'s
+    run with the kernels."""
+    S, n = args.shards, args.shard_rounds
+    check(S >= 2 and S % 2 == 0, f"--shards {S}: (c) grows from S/2 servers")
+    cfg = shard_config(S)
+    plain_cfg = dataclasses.replace(cfg, fused_commit=False,
+                                    batched_probe=False)
+    T = cfg.n_threads
+    lay = tpcc.make_layout(cfg)
+    R = lay.catalog.total_records
+    per_rec = pool_bytes_per_record(cfg)
+    print(f"sharded store: {S} memory servers x (50 warehouses, 60 threads): "
+          f"{cfg.n_warehouses} warehouses, {cfg.n_items} items, "
+          f"{cfg.customers_per_district} customers a district, {T} threads; "
+          f"pool from the catalog {R} records x {per_rec} B = "
+          f"{R * per_rec / 1e9:.3f} GB ({-(-R // S)} records a server), "
+          f"directory {tpcc.directory_buckets(cfg, lay)} buckets", flush=True)
+    t_phase = t0 = time.perf_counter()
+    oracle_1 = VectorOracle(T)
+    oracle_m = PartitionedVectorOracle(T, n_parts=S)
+    _, st0 = tpcc.init_tpcc(
+        cfg, oracle_1, torch.Generator(device=dev).manual_seed(args.seed + 10),
+        device=dev)
+    torch.cuda.synchronize()
+    check(st0.nam.table.n_records == R and sum(
+        t.numel() * t.element_size() for t in st0.nam.table) == R * per_rec,
+        "the loaded pool is not the catalog's")
+    draw = workload.mixed_stream(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed + 11))
+    draws = [draw(r) for r in range(n)]
+    print(f"sharded store: load {time.perf_counter() - t0:.2f} s | {smi}")
+
+    def deploy(c, n_shards=S):
+        """A clone of the loaded state over ``n_shards`` servers, its engine
+        and journal (a replica a server)."""
+        o = PartitionedVectorOracle(T, n_parts=n_shards)
+        engine = tpcc.make_mixed_engine(c, lay, n_shards, o,
+                                        shard_vector=True, with_journal=True)
+        st = tpcc.distribute_state(engine, clone(st0))
+        jnl = store.shard_journal(n_shards, tpcc.make_journal(
+            c, o, capacity_rounds=n + 2, n_replicas=n_shards, device=dev))
+        return o, engine, st, jnl
+
+    # ---- (a) the mesh mix against the plain path and one server --------
+    t0 = time.perf_counter()
+    runs = {}
+    for label, c, mesh in (("mesh, kernels", cfg, True),
+                           ("mesh, plain", plain_cfg, True),
+                           ("one server, kernels", cfg, False),
+                           ("one server, plain", plain_cfg, False)):
+        if mesh:
+            oracle, engine, st, jnl = deploy(c)
+        else:
+            oracle, engine, st = oracle_1, None, clone(st0)
+            jnl = tpcc.make_journal(c, oracle, capacity_rounds=n + 2,
+                                    n_replicas=S, device=dev)
+        driver = functools.partial(tpcc.run_mixed_rounds, engine=engine,
+                                   journal=jnl, **DURABLE_GC)
+        reset_launch_counts()
+        with SubRounds(mesh=mesh) as sub:
+            st, stats, rounds = timed_run(driver, c, lay, st, oracle,
+                                          lambda r: draws[r], n)
+        runs[label] = dict(st=st, stats=stats, rounds=rounds, jnl=jnl,
+                           sub=sub, launches=launch_counts(decide=True),
+                           oracle=oracle)
+    mk = runs["mesh, kernels"]
+    for label, run in runs.items():
+        check([x for x, _, _ in run["sub"].log]
+              == [x for x, _, _ in mk["sub"].log],
+              f"{label} ran other sub-rounds than the mesh with kernels")
+        for i, ((x, a, _), (_, b, _)) in enumerate(zip(mk["sub"].log,
+                                                       run["sub"].log)):
+            same(a, b, f"sharded sub-round {i} ({x}) outcomes, {label}")
+        same_stats(mk["stats"], run["stats"], f"sharded mix, {label}")
+        for f, a, b in zip(wal.Journal._fields, mk["jnl"], run["jnl"]):
+            check(torch.equal(a, b), f"sharded journal leaf {f} differs, "
+                                     f"{label}")
+        same(unplaced(mk["st"], R, T), unplaced(run["st"], R, T),
+             f"sharded final state, {label}")
+    for x in ("neworder_round", "payment_round", "delivery_round"):
+        per_call = mk["sub"].launches(x)
+        check(bool(per_call) and all(
+            d["batched_probe"] == S and d["fused_commit"] == 2 * S
+            and d["fused_commit_decide"] == S for d in per_call),
+            f"{x}: not {S} probe and {S} decide + {S} apply launches in "
+            f"every sub-round over the servers: {per_call}")
+    stats = mk["stats"]
+    check(stats.total_commits > 0, "no transaction committed on the mesh")
+    check(stats.gc_sweeps == n // DURABLE_GC["gc_interval"],
+          f"{stats.gc_sweeps} GC sweeps in {n} rounds")
+    print(f"sharded (a): {n} mix rounds over {S} servers, launches "
+          f"{mk['launches']}; kernels and plain path over the servers and "
+          f"the single-server driver with and without kernels identical in "
+          f"{len(mk['sub'].log)} sub-rounds, the statistics, every journal "
+          f"leaf ({S} replicas) and the final state; commits "
+          f"{stats.commits}, gc_sweeps {stats.gc_sweeps}, reclaim_traj "
+          f"{stats.reclaim_traj}")
+    for label, run in runs.items():
+        print_round_times(f"sharded mix, {label}", run["rounds"],
+                          run["stats"].total_commits, "transactions")
+    print(f"sharded (a): {time.perf_counter() - t0:.2f} s | {smi}")
+    del runs["one server, kernels"]
+
+    # ---- the kept round: each server's launches against their twins ----
+    # on the plain runs' final states, equal to (a)'s, which (b) and (c)
+    # are held against
+    t0 = time.perf_counter()
+    mesh, one = runs.pop("mesh, plain"), runs.pop("one server, plain")
+    engine = tpcc.make_mixed_engine(cfg, lay, S, oracle_m, shard_vector=True)
+    no_draw = workload.neworder_stream(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed + 12))
+    inp = no_draw(0)
+    with KernelCalls() as calls:
+        tpcc.neworder_round_distributed(cfg, lay, mesh["st"], oracle_m,
+                                        engine, inp, round_no=n)
+    records = mesh_kernel_records(calls, smi)
+    calls.restore()
+    with KernelCalls() as calls_1:
+        tpcc.neworder_round(cfg, lay, one["st"], oracle_1, inp, round_no=n)
+    single_ms, single_q, single_narrow = single_commit_time(calls_1)
+    print(f"fused_commit (one server, the same round's inputs, Q = "
+          f"{calls_1.applies[0][0][2].shape[0]}): {single_ms * 1e3:.2f} us "
+          f"on the device, {single_narrow * 1e3:.2f} us on its {single_q} "
+          f"active lanes alone; over {S} servers a decide "
+          f"{records['decide'][1][0] * 1e3:.2f} us and an apply "
+          f"{records['apply'][1][0] * 1e3:.2f} us a server | {smi}")
+
+    # host synchronisations and CUDA launches a round, for both engines
+    for label, eng, st, o in (("sharded mix, kernels", engine, mesh["st"],
+                               oracle_m),
+                              ("one-server mix at the same scale, kernels",
+                               None, one["st"], oracle_1)):
+        driver = functools.partial(tpcc.run_mixed_rounds, engine=eng)
+        print_profile(label, 2, *profile_rounds(
+            driver, cfg, lay, st, o, workload.mixed_stream(
+                cfg, torch.Generator(device=dev).manual_seed(args.seed + 13)),
+            2))
+    del mesh, one, calls, calls_1
+    print(f"sharded kernels and profile: {time.perf_counter() - t0:.2f} s "
+          f"| {smi}")
+
+    # ---- (b) a killed server ------------------------------------------
+    t0 = time.perf_counter()
+    kill = tpcc.FailureInjector(kill_round=(n // 2) | 1, dead_server=S - 1,
+                                in_flight=True)
+    oracle, engine, st, jnl = deploy(cfg)
+    with tempfile.TemporaryDirectory() as d, DurableProbe() as probe, \
+            LoseServer():
+        st, stats_b = tpcc.run_mixed_rounds(
+            cfg, lay, st, oracle, lambda r: draws[r], n, engine=engine,
+            journal=jnl, checkpoint_dir=d, failure=kill, device="cuda",
+            **DURABLE_GC)
+    (rep,) = stats_b.recovery
+    check(rep.checkpoint_round < rep.kill_round and rep.undetermined > 0,
+          f"the kill left no undetermined intent after a checkpoint: {rep}")
+    same(st, mk["st"], "sharded recovered final state")
+    same_stats(mk["stats"], stats_b, "sharded recovered run",
+               skip=("recovery",))
+    for f in wal.ENTRY_FIELDS:
+        x = getattr(jnl, f)
+        check(bool((x == x[:1]).all()), f"journal replicas differ in {f} "
+                                        f"after rereplicate")
+    (ea, ua), (eb, ub) = resolved_entries(mk["jnl"]), resolved_entries(jnl)
+    check(ua == 0 and ub == rep.undetermined,
+          f"undetermined entries {ua}, {ub} for {rep.undetermined}")
+    for f, a, b in zip(wal.ENTRY_FIELDS, ea, eb):
+        check(torch.equal(a, b), f"recovered journal entries differ in {f}")
+    print(f"sharded (b): server {rep.dead_server} of {S} killed at round "
+          f"{rep.kill_round} with intents in flight, its view and replica "
+          f"overwritten; restored the checkpoint of round "
+          f"{rep.checkpoint_round}, replayed {rep.replayed_entries} "
+          f"entries, skipped {rep.undetermined} undetermined, released "
+          f"{rep.released_locks} locks; state, statistics and resolved "
+          f"journal entries identical to (a)")
+    for b, sec in probe.saves:
+        print(f"sharded checkpoint save (b): {b} B in {sec:.4f} s | {smi}")
+    print(f"sharded recovery (b): restore {probe.restores[0]:.4f} s, replay "
+          + ", ".join(f"{w} {sec:.4f} s" for w, sec in probe.replays)
+          + f", recovery_seconds {rep.recovery_seconds:.4f} | {smi}")
+    print(f"sharded (b): {time.perf_counter() - t0:.2f} s | {smi}")
+    del st, jnl
+
+    # ---- (c) scale-out: born on S/2 servers, grown to S at round 3 ------
+    t0 = time.perf_counter()
+    oracle, engine, st, jnl = deploy(cfg, S // 2)
+    growth = tpcc.MeshGrowth(grow_round=3, new_shards=S)
+    with tempfile.TemporaryDirectory() as d, KeepGrowth() as grown:
+        st, stats_c = tpcc.run_mixed_rounds(
+            cfg, lay, st, oracle, lambda r: draws[r], n, engine=engine,
+            journal=jnl, checkpoint_dir=d, growth=growth, device="cuda",
+            **DURABLE_GC)
+    (rep_c,) = stats_c.growth
+    check(rep_c.moved_slots > 0 and rep_c.moved_buckets > 0,
+          f"the scale-out moved no slot or bucket: {rep_c}")
+    same(unplaced(st, R, T), unplaced(mk["st"], R, T),
+         "grown final state")
+    same_stats(mk["stats"], stats_c, "grown run", skip=("growth",))
+    for f, a, b in zip(wal.Journal._fields, mk["jnl"], grown.out[1]):
+        check(torch.equal(a, b), f"grown journal leaf {f} differs")
+    print(f"sharded (c): grown {rep_c.old_shards} -> {rep_c.new_shards} "
+          f"servers at round {rep_c.grow_round} from the checkpoint of round "
+          f"{rep_c.checkpoint_round}, {rep_c.replayed_entries} entries "
+          f"replayed, {rep_c.moved_slots} slots and {rep_c.moved_buckets} "
+          f"buckets moved, migration_seconds {rep_c.migration_seconds:.4f}; "
+          f"state, statistics and journal identical to the run born on "
+          f"{S} | {smi}")
+    print(f"sharded (c): {time.perf_counter() - t0:.2f} s | {smi}")
+    print(f"sharded store phase: {time.perf_counter() - t_phase:.2f} s | "
+          f"{smi}")
+    return records, mk["launches"]
+
+
 # -------------------------------------------------------------- main ----
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1688,6 +2233,11 @@ def main(argv=None):
     ap.add_argument("--durable-rounds", type=int, default=8,
                     help="journalled, checkpointed, GC-on mix rounds of "
                          "phase 9 (killed at round (n // 2) | 1)")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="memory servers of phase 10 (50 warehouses and "
+                         "60 threads each)")
+    ap.add_argument("--shard-rounds", type=int, default=8,
+                    help="full-mix rounds of phase 10 over the servers")
     ap.add_argument("--lm-reps", type=int, default=20,
                     help="launches timed per LM case of phase 8 (half for "
                          "attention prefill, a quarter for the expert FFN)")
@@ -2005,6 +2555,26 @@ def main(argv=None):
     print_round_times("mix (phase 5), kernels", mrounds_k,
                       mstats_k.total_commits, "transactions")
     print(f"durable phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 10. the sharded store: memory servers on a leading shard axis ----
+    del st, st_mix, st_pr, p_args, c_args
+    torch.cuda.empty_cache()
+    shard, shard_launches = run_shard_phase(args, dev, smi)
+    for key, base, label, n_l in (
+            ("batched_probe", "batched_probe", "locate-only",
+             shard_launches["batched_probe"]),
+            ("decide", "fused_commit", "decide",
+             shard_launches["fused_commit_decide"]),
+            ("apply", "fused_commit", "apply",
+             shard_launches["fused_commit"]
+             - shard_launches["fused_commit_decide"])):
+        err, timing, extra = shard[key]
+        rec = kernel_record(base, n_l, {"sharded_mix": n_l}, err, timing,
+                            f" (mesh, {label}, mean over the "
+                            f"{args.shards} servers)")
+        rec["name"] = f"{base} (mesh, {label})"
+        rec.update(extra)
+        kernels.append(rec)
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")

@@ -8,7 +8,10 @@ the fields by name, so any object with the reference's attribute layout
 will do. This is how both packages start from identical data. The §6.2
 journal (``wal.Journal``) and the §5.3 snapshot log (``gc.SnapshotLog``)
 cross the same way (``journal_from_numpy``, ``journal_to_numpy``,
-``snapshot_log_from_numpy``, ``snapshot_log_to_numpy``).
+``snapshot_log_from_numpy``, ``snapshot_log_to_numpy``), whatever their
+leading axes: a journal of one replica a memory server, and the
+per-server snapshot logs of ``store.init_shard_logs`` stacked on a
+leading shard axis, cross as they are.
 
 ``tensor_from_numpy`` and ``tensor_to_numpy`` carry float arrays (the
 inputs and outputs of the LM kernels) across, bfloat16 included: JAX's

@@ -26,13 +26,9 @@ class CasResult(NamedTuple):
     new_hdr: torch.Tensor  # int32 [R, 2] — ``hdrs``, lock bits applied
 
 
-def arbitrate(hdrs, slots, expected, prio, active) -> CasResult:
-    """One round of CAS requests against ``hdrs`` (int32 [R, 2]).
-
-    ``slots`` int32 [Q], ``expected`` int32 [Q, 2], ``prio`` uint32 words
-    [Q] (lower wins), ``active`` bool [Q]. Sets the lock bit of every
-    granted slot in place.
-    """
+def _tournament(hdrs, slots, expected, prio, active):
+    """The scatter-min tournament and the CAS test, reading ``hdrs`` only:
+    ``(granted, installed headers, scatter index)``."""
     n_rec = hdrs.shape[0]
     # gathers clamp (gidx); the scatters drop an index out of range once
     # negatives wrap: it goes to the sink row n_rec (sidx)
@@ -47,10 +43,29 @@ def arbitrate(hdrs, slots, expected, prio, active) -> CasResult:
     installed = hdrs[safe]
     granted = won & hdr_ops.equal(installed, expected) \
         & ~hdr_ops.is_locked(installed)
+    return granted, installed, sink
 
+
+def grant(hdrs, slots, expected, prio, active):
+    """Which requests :func:`arbitrate` would grant, taking no lock:
+    bool [Q]; ``hdrs`` is not written."""
+    return _tournament(hdrs, slots, expected, prio, active)[0]
+
+
+def arbitrate(hdrs, slots, expected, prio, active) -> CasResult:
+    """One round of CAS requests against ``hdrs`` (int32 [R, 2]).
+
+    ``slots`` int32 [Q], ``expected`` int32 [Q, 2], ``prio`` uint32 words
+    [Q] (lower wins), ``active`` bool [Q]. Sets the lock bit of every
+    granted slot in place.
+    """
+    n_rec = hdrs.shape[0]
+    granted, installed, sink = _tournament(hdrs, slots, expected, prio,
+                                           active)
     # scatter-max of (meta | LOCKED): sets the bit where granted, rewrites
     # the unchanged word elsewhere
-    meta = torch.cat([u64(hdrs[:, hdr_ops.META]), arb.new_zeros(1)])
+    meta = torch.cat([u64(hdrs[:, hdr_ops.META]),
+                      sink.new_zeros(1)])
     lock_or = torch.where(granted, hdr_ops.LOCKED_BIT, 0)
     meta.scatter_reduce_(0, sink, u64(installed[:, hdr_ops.META]) | lock_or,
                          "amax")

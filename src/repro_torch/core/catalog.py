@@ -1,12 +1,20 @@
 """Database catalog (paper §6.1): table and index names → pool regions.
 
 Layouts are static during a run, so the catalog is plain Python: each
-table is a contiguous slot range of the unified record pool.
+table is a contiguous slot range of the unified record pool. The catalog
+is hash-partitioned over the memory servers and cached by compute servers;
+a per-server version counter (:class:`CatalogState`, uint32 words in int32
+storage) invalidates the caches: DDL bumps it, and a thread refreshes its
+entries when the counter moved.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch._u32 import to_i32, u64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +34,10 @@ class TableSpec:
     def slot(self, local_id):
         """Global pool slot of a local record id (the &_r operator)."""
         return self.base + local_id
+
+
+class CatalogState(NamedTuple):
+    version: torch.Tensor  # int32 [n_servers] — per-server alter counters
 
 
 @dataclasses.dataclass
@@ -53,3 +65,18 @@ class Catalog:
     def server_of(self, name: str) -> int:
         """Hash partitioning of catalog entries over memory servers."""
         return hash(name) % self.n_servers
+
+    # ---- the version-counter protocol ------------------------------------
+    def init_state(self, *, device=None) -> CatalogState:
+        return CatalogState(version=torch.zeros(
+            (self.n_servers,), dtype=torch.int32, device=device))
+
+    def alter(self, state: CatalogState, name: str) -> CatalogState:
+        """DDL on ``name`` bumps its server's counter (a new state)."""
+        v = u64(state.version)
+        v[self.server_of(name)] += 1
+        return CatalogState(version=to_i32(v))
+
+    def needs_refresh(self, state: CatalogState, cached: CatalogState):
+        """A compute server's check before it compiles a transaction."""
+        return state.version != cached.version

@@ -20,6 +20,14 @@ class Placement(NamedTuple):
         return torch.as_tensor(slots).to(torch.int32) // self.shard_records
 
 
+def moved_slots(old: Placement, new: Placement, n_records: int, *,
+                device=None) -> torch.Tensor:
+    """Which pool slots change owning server between two placements: the
+    record-migration set of an online scale-out, bool [n_records]."""
+    s = torch.arange(n_records, dtype=torch.int32, device=device)
+    return old.server_of_slot(s) != new.server_of_slot(s)
+
+
 def co_located_server(tid, threads_per_server: int):
     """Compute server hosting thread ``tid`` (one pair per machine, §7.1)."""
     return torch.as_tensor(tid).to(torch.int32) // threads_per_server
@@ -34,6 +42,13 @@ def local_fraction(placement: Placement, txn_server, access_slots,
     local = (owner == txn_server[:, None]) & access_mask
     total = access_mask.sum().clamp(min=1)
     return local.sum().to(torch.float32) / total.to(torch.float32)
+
+
+def route_home(home_warehouse, warehouses_per_server: int):
+    """§7.3 "w/ locality": run a transaction where its home warehouse
+    lives."""
+    return torch.as_tensor(home_warehouse).to(torch.int32) \
+        // warehouses_per_server
 
 
 def thread_homes(n_threads: int, n_warehouses: int, *, device=None):
@@ -54,3 +69,16 @@ def route_transactions(mode: str, placement: Placement, home_slot, tid,
         return co_located_server(
             tid, max(1, -(-n_threads // placement.n_servers)))
     raise ValueError(f"unknown locality mode: {mode!r}")
+
+
+def expected_local_fraction(distributed_pct: float,
+                            items_remote_when_distributed: float = 1.0,
+                            accesses_home: float = 13.0,
+                            accesses_remote: float = 10.0) -> float:
+    """The reference's analytic expectation of the local share of TPC-C
+    new-order at a degree of distribution: a distributed new-order sources
+    its ~10 stocks remotely instead of at home (``accesses_remote`` does
+    not enter, as in the reference)."""
+    d = distributed_pct / 100.0
+    local = accesses_home - d * items_remote_when_distributed * 10.0
+    return max(0.0, local / accesses_home)

@@ -10,7 +10,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch._u32 import i32, u64
+from repro_torch._u32 import MASK32, i32, to_i32, u64
 
 SENTINEL = i32(0xFFFFFFFF)
 
@@ -123,3 +123,13 @@ def lookup_max_below(idx: RangeIndex, hi):
     # candidates at rank 0; argmax takes the first of equal ranks
     best = torch.where(ok, u64(k) + 1, 0).argmax(dim=1, keepdim=True)
     return k.gather(1, best)[:, 0], v.gather(1, best)[:, 0], ok.any(dim=1)
+
+
+def partition_bounds(n_servers: int, key_space: int, *, device=None):
+    """Range partitioning of the key space over memory servers (§5.2):
+    ``(lo, hi)`` uint32 words [n_servers], each part ``ceil(key_space /
+    n_servers)`` keys wide, in the reference's uint32 arithmetic."""
+    per = -(-key_space // n_servers)
+    lo = torch.arange(n_servers, dtype=torch.int64, device=device) * per
+    hi = torch.clamp((lo + per) & MASK32, max=key_space)
+    return to_i32(lo), to_i32(hi)

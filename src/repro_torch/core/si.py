@@ -141,6 +141,36 @@ class CommitOut(NamedTuple):
     fails: torch.Tensor         # int32 [T]
 
 
+def _fail_counts(table: VersionedTable, req_slots, req_active, txn_of_req,
+                 granted, n_txn: int):
+    """Install feasibility and the per-transaction failure counts: a
+    request is effective iff granted and its circular victim slot is
+    reusable (§5.1); every active request that is not counts against its
+    transaction. Returns ``(effective, fails int32 [n_txn])``."""
+    R, K = table.n_records, table.n_old
+    safe = gidx(torch.where(req_active, req_slots, 0), R)
+    wpos = torch.remainder(table.next_write[safe].to(torch.int64), K)
+    effective = granted & hdr_ops.is_moved(table.old_hdr[safe, wpos])
+    # scatter-add with JAX's drop of out-of-range ids: slot n_txn is a sink
+    fails = torch.zeros((n_txn + 1,), dtype=torch.int32,
+                        device=req_active.device)
+    fails.index_add_(0, sidx(txn_of_req, n_txn),
+                     (req_active & ~effective).to(torch.int32))
+    return effective, fails[:n_txn]
+
+
+def decide_write_sets(table: VersionedTable, req_slots, req_expected,
+                      req_prio, req_active, txn_of_req, n_txn: int):
+    """The decide half of :func:`commit_write_sets`: its failure counts per
+    transaction (int32 [n_txn]), computed without taking a lock or
+    writing anything. A memory server's contribution to a cross-server
+    commit decision (``store.distributed_round``)."""
+    granted = cas.grant(table.cur_hdr, req_slots, req_expected, req_prio,
+                        req_active)
+    return _fail_counts(table, req_slots, req_active, txn_of_req, granted,
+                        n_txn)[1]
+
+
 def commit_write_sets(table: VersionedTable, req_slots, req_expected,
                       req_prio, req_active, txn_of_req, new_hdr, new_data,
                       txn_ok, *, ext_fails=None) -> CommitOut:
@@ -149,21 +179,10 @@ def commit_write_sets(table: VersionedTable, req_slots, req_expected,
     ones. A transaction commits iff ``txn_ok`` and none of its active
     requests (plus ``ext_fails``) failed. Updates ``table`` in place."""
     n_txn = txn_ok.shape[0]
-    res = cas.arbitrate(table.cur_hdr, req_slots, req_expected, req_prio,
-                        req_active)
-    granted = res.granted
-
-    # install feasibility: the circular victim slot must be reusable (§5.1)
-    R, K = table.n_records, table.n_old
-    safe = gidx(torch.where(req_active, req_slots, 0), R)
-    wpos = torch.remainder(table.next_write[safe].to(torch.int64), K)
-    effective = granted & hdr_ops.is_moved(table.old_hdr[safe, wpos])
-
-    # scatter-add with JAX's drop of out-of-range ids: slot n_txn is a sink
-    fails = torch.zeros((n_txn + 1,), dtype=torch.int32, device=txn_ok.device)
-    fails.index_add_(0, sidx(txn_of_req, n_txn),
-                     (req_active & ~effective).to(torch.int32))
-    fails = fails[:n_txn]
+    granted = cas.arbitrate(table.cur_hdr, req_slots, req_expected,
+                            req_prio, req_active).granted
+    effective, fails = _fail_counts(table, req_slots, req_active, txn_of_req,
+                                    granted, n_txn)
     total = fails if ext_fails is None else fails + ext_fails
     committed = (total == 0) & txn_ok
 

@@ -55,3 +55,27 @@ class VectorOracle:
         vec.scatter_reduce_(0, sidx(self.slot_of_thread(tid), n), cts, "amax")
         state.vec.copy_(to_i32(vec[:n]))
         return state
+
+
+class PartitionedVectorOracle(VectorOracle):
+    """§4.2 partitioning: T_R split into ``n_parts`` contiguous parts of
+    ``part_size`` slots over the memory servers. For one reader the vector
+    semantics do not change; :func:`read_partitioned` models reading the
+    parts at different staleness, and ``part_of_slot`` names the server of
+    a slot (``store.distributed_round(shard_vector=True)``)."""
+
+    def __init__(self, n_threads: int, n_parts: int):
+        super().__init__(n_threads)
+        self.n_parts = n_parts
+        self.part_size = -(-n_threads // n_parts)
+
+    def part_of_slot(self, slot):
+        return torch.as_tensor(slot) // self.part_size
+
+    def read_partitioned(self, states, round_of_part):
+        """Each part read at its own staleness (GSI-admissible):
+        ``states`` is a history of vectors [H, n_slots], ``round_of_part``
+        int [n_parts] an index into it per part."""
+        slots = torch.arange(self.n_slots, device=states.device)
+        part = self.part_of_slot(slots)
+        return states[round_of_part.to(torch.int64)[part], slots]

@@ -63,6 +63,13 @@
 // transaction's decision is known only after the grant phase), so the
 // phases are four with three barriers (kBarriers).
 //
+// Decide-only launch (a memory server's part of a cross-server decision,
+// store.distributed_round): phases 1 and 2, then every bid is reset after
+// a second barrier and the launch ends. Its one output is fails; it writes
+// no header, ring, payload, next_write, vote, vec, granted, committed or
+// do_install, and reads no payload row. The server's apply launch that
+// follows replays the same tournament with ext_fails = total - local.
+//
 // Index rule (JAX's): a gather wraps a negative slot once and then clamps
 // it (g); a scatter wraps once and DROPS what is still out of range (s).
 // So a request out of range bids nothing, yet its won test reads the
@@ -118,6 +125,7 @@ struct Args {
   const uint32_t* cts;
   const int32_t* ext_fails;
   int n_txn;
+  int decide_only;   // phases 1-2 and the bid reset only (see above)
   // scratch: per request the payload row read in the grant phase, and
   // the lane state when it does not fit in shared memory (else null)
   int32_t* kept_data;
@@ -241,7 +249,8 @@ __global__ void __launch_bounds__(kThreads) fused_commit_kernel(const Args a) {
       // kept whatever the outcome, so that these loads need not wait for it
       l.hdr[i] = inst;
       l.pos[i] = w;
-      copy_row(a.kept_data + q * W, a.cur_data + s * W, W);
+      if (!a.decide_only)
+        copy_row(a.kept_data + q * W, a.cur_data + s * W, W);
       g = won && inst.x == exp.x && inst.y == exp.y &&
           (inst.x & kLocked) == 0u;
       const bool eff = g && (a.old_hdr[s * K + w].x & kMoved) != 0u;
@@ -249,9 +258,17 @@ __global__ void __launch_bounds__(kThreads) fused_commit_kernel(const Args a) {
       if (!eff && t >= 0) atomicAdd(&a.fails[t], 1);
       if (eff) l.flags[i] |= kEffective;
     }
-    a.granted[q] = g;
+    if (!a.decide_only) a.granted[q] = g;
   }
   cluster.sync();
+
+  if (a.decide_only) {   // uniform over the cluster: no barrier is skipped
+    for (int64_t i = threadIdx.x; rq.base + i < rq.end; i += blockDim.x) {
+      const int64_t s = scatter_idx(l.slot[i], R);
+      if ((l.flags[i] & kActive) && s >= 0) a.arb[s].x = kNoWinner;
+    }
+    return;
+  }
 
   // ---- 3. decide ----------------------------------------------------------
   for (int64_t i = threadIdx.x; rq.base + i < rq.end; i += blockDim.x) {
@@ -335,8 +352,8 @@ extern "C" int fused_commit_launch(
     const void* act, const void* txn, const void* new_hdr,
     const void* new_data, int64_t n_q, const void* txn_ok,
     const void* txn_slot, const void* cts, const void* ext_fails, int n_txn,
-    void* kept_data, void* lane_scratch, void* granted, void* committed,
-    void* do_install, void* fails, void* arb, void* stream) {
+    int decide_only, void* kept_data, void* lane_scratch, void* granted,
+    void* committed, void* do_install, void* fails, void* arb, void* stream) {
   if (n_q == 0 && n_txn == 0) return (int)cudaGetLastError();
   const Args a{(uint2*)cur_hdr, (int32_t*)cur_data, (uint2*)old_hdr,
                (int32_t*)old_data, (int32_t*)next_write, (uint32_t*)vec,
@@ -346,7 +363,8 @@ extern "C" int fused_commit_launch(
                (const uint2*)new_hdr, (const int32_t*)new_data, n_q,
                (const uint8_t*)txn_ok, (const int32_t*)txn_slot,
                (const uint32_t*)cts, (const int32_t*)ext_fails, n_txn,
-               (int32_t*)kept_data, (unsigned char*)lane_scratch,
+               decide_only, (int32_t*)kept_data,
+               (unsigned char*)lane_scratch,
                (uint8_t*)granted, (uint8_t*)committed, (uint8_t*)do_install,
                (int32_t*)fails, (uint2*)arb};
   ClusterLaunch l(stream);

@@ -1,9 +1,13 @@
-"""TPC-C over the NAM store (paper §7), single memory server.
+"""TPC-C over the NAM store (paper §7), on one memory server or on several.
 
 One round executes one transaction per execution thread through the SI
 protocol (``core/si.py``): new-order alone (:func:`run_neworder_rounds`) or
 the full five-transaction mix (:func:`run_mixed_rounds`), where each type
-runs as a sub-round over the threads that drew it. The schema keeps the
+runs as a sub-round over the threads that drew it. With an ``engine``
+(:func:`make_distributed_engine`, :func:`make_mixed_engine`) the rounds run
+over the pool range-partitioned on memory servers
+(``store.distributed_round``, the servers a leading shard axis on one
+device), with the results of the single-server rounds. The schema keeps the
 reference's encodings: every column is an int32 word of an 8-word payload,
 the contended hot spots are the district's ``d_next_o_id`` and the
 warehouse row that payment writes, and inserts go to thread-private
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,7 +33,7 @@ from repro_torch.core import cas, gc as gc_ops, hashtable as ht, \
     store, wal
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.si import TxnBatch
-from repro_torch.core.tsoracle import VectorOracle
+from repro_torch.core.tsoracle import VectorOracle, VectorState
 from repro_torch.db import workload
 
 WIDTH = 8          # unified payload width (int32 words)
@@ -567,20 +571,192 @@ def neworder_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         ops=out.ops, batch=batch, vis=out.vis, journal=journal)
 
 
+# ------------------------------------------- new-order over the NAM mesh ----
+class DistEngine(NamedTuple):
+    """A TPC-C executor over ``n_shards`` memory servers: ``round_fn`` is
+    the ``store.distributed_round`` executor of the new-order logic over
+    the padded pool (and the vector when ``shard_vector``), each server
+    owning ``shard_records`` contiguous rows. ``gc_fn`` is the per-server
+    §5.3 sweep; ``n_dir_buckets > 0`` makes ``round_fn`` key-addressed
+    (§5.2); ``with_journal`` makes the executors take and return the §6.2
+    journal (one replica a server)."""
+    round_fn: Callable
+    n_shards: int
+    shard_records: int
+    shard_vector: bool
+    gc_fn: Callable
+    n_dir_buckets: int
+    with_journal: bool
+
+    @property
+    def placement(self) -> locality.Placement:
+        return locality.Placement(n_servers=self.n_shards,
+                                  shard_records=self.shard_records)
+
+
+def make_distributed_engine(cfg: TPCCConfig, lay: TPCCLayout, n_shards: int,
+                            oracle: VectorOracle, *,
+                            shard_vector: bool = False,
+                            with_journal: bool = False) -> DistEngine:
+    """The new-order engine over ``n_shards`` memory servers; the
+    kernel flags come from ``cfg``."""
+    shard_records = -(-lay.catalog.total_records // n_shards)
+    n_dir = directory_buckets(cfg, lay) if cfg.key_addressed else 0
+    round_fn, _ = store.distributed_round(
+        n_shards, oracle,
+        lambda rh, rd, vec, aux: _neworder_new_data(rd, aux),
+        shard_records, shard_vector=shard_vector, n_dir_buckets=n_dir,
+        dir_max_probes=DIR_PROBES, with_journal=with_journal,
+        fused_commit=cfg.fused_commit, batched_probe=cfg.batched_probe)
+    gc_fn = store.distributed_gc_round(n_shards, shard_vector=shard_vector,
+                                       n_vec_slots=oracle.n_slots)
+    return DistEngine(round_fn=round_fn, n_shards=n_shards,
+                      shard_records=shard_records, shard_vector=shard_vector,
+                      gc_fn=gc_fn, n_dir_buckets=n_dir,
+                      with_journal=with_journal)
+
+
+def distribute_state(engine: DistEngine, st: TPCCState) -> TPCCState:
+    """The loaded single-server state as the deployment over the engine's
+    servers: the pool padded (new tensors unless the servers divide it; free
+    the input's then), the vector padded when partitioned, the directory's
+    bucket ranges checked."""
+    tbl, _ = store.pad_table(st.nam.table, engine.n_shards)
+    tbl = store.shard_table(engine.n_shards, tbl)
+    vec = st.nam.oracle_state.vec
+    if engine.shard_vector:
+        vec = store.shard_vector(engine.n_shards, vec)
+    directory = st.directory
+    if directory is not None and engine.n_dir_buckets:
+        directory = store.shard_directory(engine.n_shards, directory)
+    return st._replace(nam=st.nam._replace(
+        table=tbl, oracle_state=VectorState(vec=vec)), directory=directory)
+
+
+class MixedEngine(NamedTuple):
+    """The five-transaction mix's executors over the memory servers: the
+    new-order :class:`DistEngine` (``base``), one ``distributed_round``
+    executor a further write type, and one ``distributed_readonly_round``
+    executor the read-only types share. The placement fields are
+    ``base``'s."""
+    base: DistEngine
+    payment_fn: Callable
+    delivery_fn: Callable
+    readonly_fn: Callable
+
+    round_fn = property(lambda self: self.base.round_fn)
+    n_shards = property(lambda self: self.base.n_shards)
+    shard_records = property(lambda self: self.base.shard_records)
+    shard_vector = property(lambda self: self.base.shard_vector)
+    gc_fn = property(lambda self: self.base.gc_fn)
+    n_dir_buckets = property(lambda self: self.base.n_dir_buckets)
+    with_journal = property(lambda self: self.base.with_journal)
+    placement = property(lambda self: self.base.placement)
+
+
+def make_mixed_engine(cfg: TPCCConfig, lay: TPCCLayout, n_shards: int,
+                      oracle: VectorOracle, *, shard_vector: bool = False,
+                      with_journal: bool = False) -> MixedEngine:
+    """The mix's executors over ``n_shards`` memory servers (the new-order
+    one is :func:`make_distributed_engine`'s)."""
+    base = make_distributed_engine(cfg, lay, n_shards, oracle,
+                                   shard_vector=shard_vector,
+                                   with_journal=with_journal)
+    write_fn = lambda new_data: store.distributed_round(
+        n_shards, oracle, lambda rh, rd, vec, aux: new_data(rd, aux),
+        base.shard_records, shard_vector=shard_vector,
+        with_journal=with_journal, fused_commit=cfg.fused_commit,
+        batched_probe=cfg.batched_probe)[0]
+    return MixedEngine(
+        base=base, payment_fn=write_fn(_payment_new_data),
+        delivery_fn=write_fn(_delivery_new_data),
+        readonly_fn=store.distributed_readonly_round(
+            n_shards, base.shard_records, n_dir_buckets=base.n_dir_buckets,
+            dir_max_probes=DIR_PROBES))
+
+
+def _n_probes(batch: TxnBatch, keyed, active):
+    """§5.2 index probes of a round: the expression ``si.run_round``
+    charges."""
+    if keyed is None:
+        return 0
+    act = _active_or_ones(batch.tid.shape[0], active, batch.tid.device)
+    return (keyed.mask & batch.read_mask & act[:, None]).sum()
+
+
+def _dist_ops(oracle, batch: TxnBatch, out, tbl, active,
+              keyed=None) -> si.OpCounts:
+    """Op accounting of a round over the servers: the ``si.count_ops``
+    call of the single-server round."""
+    return si.count_ops(oracle, batch, out.txn_found, out.from_current,
+                        out.n_installs, out.n_releases, out.committed.sum(),
+                        tbl.payload_width, n_txns=_n_active(batch, active),
+                        active=active,
+                        n_index_probes=_n_probes(batch, keyed, active))
+
+
+def _dist_vis(batch: TxnBatch, out, active) -> si.VisStats:
+    """Visibility accounting of a round over the servers: the
+    ``si.vis_stats`` fold of the single-server round."""
+    return si.vis_stats(batch.read_mask, out.read_found, out.from_current,
+                        out.from_ovf, active)
+
+
+def _journal_kw(journal, round_no, seq):
+    return dict(journal=journal, round_no=round_no, seq=seq) \
+        if journal is not None else {}
+
+
+def neworder_round_distributed(cfg: TPCCConfig, lay: TPCCLayout,
+                               st: TPCCState, oracle: VectorOracle,
+                               engine: DistEngine,
+                               inp: workload.NewOrderInputs, round_no=0,
+                               active=None, journal=None) -> NewOrderResult:
+    """One new-order round through the engine's servers: the results of
+    :func:`neworder_round`. Updates ``st`` (and ``journal``) in place."""
+    batch, keyed = _neworder_batch(cfg, lay, inp, active)
+    kw = _journal_kw(journal, round_no, _JSEQ_NEWORDER)
+    if keyed is not None:
+        kw.update(directory=st.directory, read_keys=keyed.keys,
+                  key_mask=keyed.mask)
+    tbl, vec, out = engine.round_fn(st.nam.table, st.nam.oracle_state.vec,
+                                    batch, inp, active, **kw)[:3]
+    ops = _dist_ops(oracle, batch, out, tbl, active, keyed)
+    tbl, idx, extends, o_id = _neworder_inserts(
+        cfg, lay, st, oracle, tbl, vec, out.committed, out.read_data, inp,
+        round_no, journal=journal)
+    nam = st.nam._replace(table=tbl, oracle_state=VectorState(vec=vec),
+                          extends=extends)
+    return NewOrderResult(
+        state=st._replace(nam=nam, order_index=idx),
+        committed=out.committed, snapshot_miss=out.snapshot_miss, o_id=o_id,
+        ops=ops, batch=batch, vis=_dist_vis(batch, out, active),
+        journal=journal)
+
+
 # ------------------------------------------------------ sustained-run GC ----
-def _gc_init(oracle, gc_interval: int, gc_snapshots: int, device):
-    """The GC thread's §5.3 snapshot log of a driver run (None when GC is
-    off)."""
+def _gc_init(oracle, engine, gc_interval: int, gc_snapshots: int, device):
+    """The GC thread's §5.3 snapshot log of a driver run: one, or one a
+    memory server of ``engine`` (None when GC is off)."""
     if gc_interval <= 0:
         return None
-    return gc_ops.init_log(gc_snapshots, oracle.n_slots, device=device)
+    if engine is None:
+        return gc_ops.init_log(gc_snapshots, oracle.n_slots, device=device)
+    return store.init_shard_logs(engine.n_shards, gc_snapshots,
+                                 oracle.n_slots, device=device)
 
 
-def _gc_sweep(lay, st: TPCCState, log, now, max_txn_time) -> float:
+def _gc_sweep(lay, st: TPCCState, engine, log, now, max_txn_time) -> float:
     """One GC-thread step over the pool (snapshot T_R, safe vector, sweep,
-    lazy truncation), in place. Returns the reclaimable fraction."""
+    lazy truncation), on every server of ``engine`` when given, in place.
+    Returns the reclaimable fraction of the real records (not the
+    padding)."""
     tbl = st.nam.table
-    gc_ops.gc_round(tbl, st.nam.oracle_state.vec, log, now, max_txn_time)
+    if engine is None:
+        gc_ops.gc_round(tbl, st.nam.oracle_state.vec, log, now,
+                        max_txn_time)
+    else:
+        engine.gc_fn(tbl, st.nam.oracle_state.vec, log, now, max_txn_time)
     return float(gc_ops.reclaimable_fraction(
         tbl, n_records=lay.catalog.total_records))
 
@@ -609,7 +785,7 @@ class NewOrderRunStats(NamedTuple):
     retries: int
     abort_rate: float
     ops: si.OpCounts            # summed over rounds (Python floats)
-    local_fraction: float       # nan: no locality measurement on this path
+    local_fraction: float       # mean over rounds; nan when not measured
     missed: torch.Tensor        # bool [n_rounds, T]
     snapshot_misses: int = 0
     contention_aborts: int = 0
@@ -621,13 +797,24 @@ class NewOrderRunStats(NamedTuple):
 
 def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                         oracle: VectorOracle, draw: workload.Draw,
-                        n_rounds: int, *, move_versions: bool = True,
+                        n_rounds: int, *, home_w=None,
+                        engine: Optional[DistEngine] = None,
+                        locality_mode: Optional[str] = None,
+                        move_versions: bool = True,
                         gc_interval: int = 0, max_txn_time: int = 4,
                         gc_snapshots: int = 8, device=None):
-    """Closed-loop driver on one memory server: each thread runs new-orders
-    back to back, and an aborted transaction re-enters the next round with
-    its original inputs (§7.4). ``draw(round)`` supplies fresh inputs.
-    ``device`` (default ``cuda``) must be where ``st`` lives.
+    """Closed-loop driver: each thread runs new-orders back to back, and an
+    aborted transaction re-enters the next round with its original inputs
+    (§7.4). ``draw(round)`` supplies fresh inputs. ``device`` (default
+    ``cuda``) must be where ``st`` lives.
+
+    ``engine=None`` runs on one memory server; with a :class:`DistEngine`
+    every round runs over its servers (``st`` from
+    :func:`distribute_state`). ``locality_mode`` (``"aware"`` or
+    ``"oblivious"``) measures the machine-local access share of the run
+    under that §7.3 routing (the mean over rounds); under the
+    warehouse-major layout it needs ``home_w`` = the thread homes the
+    draws were pinned to.
 
     ``gc_interval > 0`` turns on sustained execution (§5.3): every
     ``gc_interval`` rounds the GC thread snapshots the vector into a log of
@@ -643,6 +830,11 @@ def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         raise ValueError(f"state lives on {st.nam.table.cur_hdr.device}, "
                          f"not on {dev}")
     T = cfg.n_threads
+    _check_layout_homes(cfg, lay, home_w, locality_mode)
+    placement = engine.placement if engine is not None else \
+        locality.Placement(n_servers=1,
+                           shard_records=lay.catalog.total_records)
+    local = []
     retry_mask = torch.zeros((T,), dtype=torch.bool, device=dev)
     pending = None
     committed_rounds, missed_rounds = [], []
@@ -650,17 +842,21 @@ def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     snapshot_misses = contention_aborts = ovf_reads = ovf_peak = 0
     ops_sum = [0.0] * len(si.OpCounts._fields)
     use_gc = gc_interval > 0
-    gc_log = _gc_init(oracle, gc_interval, gc_snapshots, dev)
+    gc_log = _gc_init(oracle, engine, gc_interval, gc_snapshots, dev)
     reclaim_traj = []
 
     for r in range(n_rounds):
         inp = _merge_retries(pending, draw(r), retry_mask, T)
-        out = neworder_round(cfg, lay, st, oracle, inp, round_no=r)
+        if engine is None:
+            out = neworder_round(cfg, lay, st, oracle, inp, round_no=r)
+        else:
+            out = neworder_round_distributed(cfg, lay, st, oracle, engine,
+                                             inp, round_no=r)
         st = out.state
         if move_versions:
             mvcc.version_mover(st.nam.table, reuse_only=use_gc)
         if use_gc and (r + 1) % gc_interval == 0:
-            frac = _gc_sweep(lay, st, gc_log, r, max_txn_time)
+            frac = _gc_sweep(lay, st, engine, gc_log, r, max_txn_time)
             reclaim_traj.append((r, frac))
 
         c, miss = out.committed, out.snapshot_miss
@@ -676,15 +872,23 @@ def run_neworder_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         ovf_peak = max(ovf_peak, int(st.nam.table.ovf_next.max()))
         for i, f in enumerate(out.ops):
             ops_sum[i] += float(f)
+        if locality_mode is not None:
+            srv = locality.route_transactions(
+                locality_mode, placement, d_slot(lay, inp.w_id, inp.d_id),
+                out.batch.tid, T)
+            local.append(locality.local_fraction(
+                placement, srv, out.batch.read_slots, out.batch.read_mask))
         retry_mask = ~c
         pending = inp
 
     retries -= int(retry_mask.sum())
+    fracs = torch.stack(local).tolist() if local else []
     stats = NewOrderRunStats(
         committed=torch.stack(committed_rounds), attempts=attempts,
         commits=commits, retries=retries,
         abort_rate=1.0 - commits / max(1, attempts),
-        ops=si.OpCounts(*ops_sum), local_fraction=float("nan"),
+        ops=si.OpCounts(*ops_sum),
+        local_fraction=sum(fracs) / len(fracs) if fracs else float("nan"),
         missed=torch.stack(missed_rounds), snapshot_misses=snapshot_misses,
         contention_aborts=contention_aborts, ovf_reads=ovf_reads,
         gc_sweeps=len(reclaim_traj), reclaim_traj=tuple(reclaim_traj),
@@ -781,6 +985,28 @@ def _payment_insert(cfg, lay, st: TPCCState, oracle, tbl, vec, committed,
     return tbl, cur + can.to(torch.int32)
 
 
+def payment_round_distributed(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+                              oracle: VectorOracle, engine,
+                              inp: workload.PaymentInputs, active=None,
+                              round_no=0, journal=None) -> PaymentResult:
+    """Payment through the engine's servers: the results of
+    :func:`payment_round`."""
+    batch = _payment_batch(cfg, lay, inp, active)
+    tbl, vec, out = engine.payment_fn(
+        st.nam.table, st.nam.oracle_state.vec, batch, inp, active,
+        **_journal_kw(journal, round_no, _JSEQ_PAYMENT))[:3]
+    ops = _dist_ops(oracle, batch, out, tbl, active)
+    tbl, hist_cursor = _payment_insert(cfg, lay, st, oracle, tbl, vec,
+                                       out.committed, inp, round_no=round_no,
+                                       journal=journal)
+    nam = st.nam._replace(table=tbl, oracle_state=VectorState(vec=vec))
+    return PaymentResult(
+        state=st._replace(nam=nam, hist_cursor=hist_cursor),
+        committed=out.committed, ops=ops, batch=batch,
+        snapshot_miss=out.snapshot_miss, vis=_dist_vis(batch, out, active),
+        journal=journal)
+
+
 def payment_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                   oracle: VectorOracle, inp: workload.PaymentInputs,
                   rts_vec=None, active=None, round_no=0,
@@ -843,12 +1069,20 @@ class ReadOnlyRoundResult(NamedTuple):
     read_mask: torch.Tensor
 
 
-def _snapshot_read(st: TPCCState, vec, slots, keys=None, key_mask=None):
-    """Visible reads of ``slots`` [T, A] from the single pool: the
-    ``hashtable.lookup`` + ``mvcc.read_visible`` path. ``keys``/``key_mask``
-    resolve the marked reads through ``st.directory`` (§5.2); a directory
-    miss reads as not found. Returns ``(data [T, A, W], found [T, A],
-    from_current [T, A])``."""
+def _snapshot_read(st: TPCCState, engine, vec, slots, mask, keys=None,
+                   key_mask=None):
+    """Visible reads of ``slots`` [T, A]: through the memory servers'
+    ``readonly_fn`` when an engine is given (``found`` is then True where
+    ``mask`` is not), else from the single pool by the ``hashtable.lookup``
+    + ``mvcc.read_visible`` path. ``keys``/``key_mask`` resolve the marked
+    reads through ``st.directory`` (§5.2); a directory miss reads as not
+    found. Returns ``(data [T, A, W], found [T, A], from_current [T,
+    A])``."""
+    if engine is not None:
+        out = engine.readonly_fn(st.nam.table, st.nam.oracle_state.vec,
+                                 slots, mask, directory=st.directory,
+                                 read_keys=keys, key_mask=key_mask)
+        return out.read_data, out.found, out.from_current
     T, A = slots.shape
     flat = slots.reshape(-1)
     key_ok = torch.ones(flat.shape, dtype=torch.bool, device=flat.device)
@@ -866,10 +1100,11 @@ def _snapshot_read(st: TPCCState, vec, slots, keys=None, key_mask=None):
 
 def orderstatus_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                       oracle: VectorOracle, inp: workload.OrderStatusInputs,
-                      *, active=None) -> ReadOnlyRoundResult:
+                      *, engine=None, active=None) -> ReadOnlyRoundResult:
     """Batched order-status: the customer (by key when
     ``cfg.key_addressed``), the district's latest order and its order lines
-    (a dependent read: the line count comes out of the order payload)."""
+    (a dependent read: the line count comes out of the order payload),
+    through the memory servers of ``engine`` when given."""
     T = inp.w_id.shape[0]
     dev = inp.w_id.device
     act = _active_or_ones(T, active, dev)
@@ -889,14 +1124,14 @@ def orderstatus_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         kmask = torch.stack(
             [act, torch.zeros((T,), dtype=torch.bool, device=dev)], dim=1)
         n_probes = (kmask & mask).sum()
-    data, _, fcur = _snapshot_read(st, vec, slots, keys, kmask)
+    data, _, fcur = _snapshot_read(st, engine, vec, slots, mask, keys, kmask)
     order = data[:, 1, :]
     olslot = ol_slots_of_order(
         lay, cfg, torch.where(found, oslot, _safe_order_slot(lay, cfg))
     )[:, None] + _lines(dev)
     line_mask = (_lines(dev)[None, :] < order[:, O_COL["ol_cnt"], None]) \
         & found[:, None]
-    _, _, ol_cur = _snapshot_read(st, vec, olslot)
+    _, _, ol_cur = _snapshot_read(st, engine, vec, olslot, line_mask)
     slots = torch.cat([slots, olslot], dim=1)
     mask = torch.cat([mask, line_mask], dim=1)
     fcur = torch.cat([fcur, ol_cur], dim=1)
@@ -922,16 +1157,19 @@ def _distinct_low(low, items, n_items: int):
 
 def stocklevel_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                      oracle: VectorOracle, inp: workload.StockLevelInputs,
-                     *, active=None, last_n: int = 8) -> ReadOnlyRoundResult:
+                     *, engine=None, active=None,
+                     last_n: int = 8) -> ReadOnlyRoundResult:
     """Batched stock-level: distinct items with low stock among the last
     ``last_n`` orders' lines of (w, d) — a dependent-read chain (district →
-    index scan → order lines → stocks, by key when ``cfg.key_addressed``)."""
+    index scan → order lines → stocks, by key when ``cfg.key_addressed``),
+    through the memory servers of ``engine`` when given."""
     T = inp.w_id.shape[0]
     dev = inp.w_id.device
     act = _active_or_ones(T, active, dev)
     vec = oracle.read(st.nam.oracle_state)
     dsl = d_slot(lay, inp.w_id, inp.d_id).to(torch.int32)
-    ddata, _, dcur = _snapshot_read(st, vec, dsl[:, None])
+    ddata, _, dcur = _snapshot_read(st, engine, vec, dsl[:, None],
+                                    act[:, None])
     next_o = ddata[:, 0, D_COL["next_o_id"]]
     lo = order_key(inp.w_id, inp.d_id, (next_o - last_n).clamp(min=0))
     hi = order_key(inp.w_id, inp.d_id, next_o)
@@ -941,7 +1179,7 @@ def stocklevel_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     ol = (ol_slots_of_order(lay, cfg, oslots.reshape(-1))[:, None]
           + _lines(dev)).reshape(T, last_n * MAX_OL)
     ol_mask = valid.repeat_interleave(MAX_OL, dim=1)
-    ol_data, ol_found, ol_cur = _snapshot_read(st, vec, ol)
+    ol_data, ol_found, ol_cur = _snapshot_read(st, engine, vec, ol, ol_mask)
     ol_ok = ol_found & ol_mask
     items = ol_data[:, :, OL_COL["i_id"]]
     w_bc = inp.w_id[:, None].expand_as(items)
@@ -952,7 +1190,8 @@ def stocklevel_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     if cfg.key_addressed:   # stocks are fetched by key (§5.2)
         skeys, skmask = stock_key(cfg, w_bc, safe_items), ol_ok
         n_probes = (skmask & ol_ok).sum()
-    s_data, s_found, s_cur = _snapshot_read(st, vec, ssl, skeys, skmask)
+    s_data, s_found, s_cur = _snapshot_read(st, engine, vec, ssl, ol_ok,
+                                            skeys, skmask)
     low = ol_ok & s_found \
         & (s_data[:, :, S_COL["quantity"]] < inp.threshold[:, None])
     counts = _distinct_low(low, items, cfg.n_items)
@@ -1103,6 +1342,28 @@ def delivery_round(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         snapshot_miss=out.snapshot_miss, vis=out.vis, journal=journal)
 
 
+def delivery_round_distributed(cfg: TPCCConfig, lay: TPCCLayout,
+                               st: TPCCState, oracle: VectorOracle, engine,
+                               inp: workload.DeliveryInputs, active=None,
+                               round_no=0, journal=None) -> DeliveryResult:
+    """Delivery through the engine's servers: the results of
+    :func:`delivery_round` (the pre-reads gather from the whole padded
+    pool, as the reference's gather from the sharded one)."""
+    vec = oracle.read(st.nam.oracle_state)
+    batch, aux, found = _delivery_prepare(cfg, lay, st, vec, inp, active)
+    tbl, nvec, out = engine.delivery_fn(
+        st.nam.table, st.nam.oracle_state.vec, batch, aux, active,
+        **_journal_kw(journal, round_no, _JSEQ_DELIVERY))[:3]
+    ops = _delivery_preread_ops(_dist_ops(oracle, batch, out, tbl, active),
+                                _n_active(batch, active), tbl.payload_width)
+    nam = st.nam._replace(table=tbl, oracle_state=VectorState(vec=nvec))
+    return DeliveryResult(
+        state=st._replace(nam=nam), committed=out.committed,
+        delivered=out.committed & found, ops=ops, batch=batch,
+        snapshot_miss=out.snapshot_miss, vis=_dist_vis(batch, out, active),
+        journal=journal)
+
+
 # ------------------------------------------- §6.2 failure injection ----------
 class FailureInjector(NamedTuple):
     """Kill memory server ``dead_server`` at the start of round
@@ -1171,21 +1432,25 @@ def recover_from_failure(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                          engine, jnl: wal.Journal, checkpoint_dir: str,
                          failure: FailureInjector, *, use_gc: bool,
                          move_versions: bool = True):
-    """§6.2 recovery of the one memory server: restore the last checkpoint
-    onto the state's device, replay the surviving journal replica onto it
+    """§6.2 recovery of the dead memory server: restore the last checkpoint
+    onto the state's device, replay the surviving journal replicas onto it
     (ordered by the logged T, the version mover at round boundaries),
     rebuild the vector from the checkpoint's and the commit records,
     release abandoned locks, re-replicate the journal (in place).
-    ``engine`` is the reference's mesh engine, which waits for the sharded
-    store (Slice D): only ``None`` is taken. Returns ``(state,
-    RecoveryReport)``; the state holds the restored tensors."""
-    if engine is not None:
-        raise NotImplementedError(
-            "recovery over a memory-server mesh needs the sharded store "
-            "(Slice D); only the single-shard engine=None is ported")
+
+    With an ``engine`` only the dead server's rows (its view of the padded
+    pool) take the replayed reconstruction; the surviving servers keep
+    their live memory, which still holds the locks of in-flight
+    (undetermined) transactions — the monitor's to release. ``engine=None``
+    is one server, whose whole pool is rebuilt. Returns ``(state,
+    RecoveryReport)``; the state holds the rebuilt vector (and, on one
+    server, the restored table)."""
     t0 = time.perf_counter()
     dead = failure.dead_server
     n_rep = jnl.n_replicas
+    if engine is not None and dead >= engine.n_shards:
+        raise ValueError(f"dead_server {dead} outside the "
+                         f"{engine.n_shards}-server mesh")
     survivors = torch.ones((n_rep,), dtype=torch.bool)
     survivors[dead % n_rep] = False
     rep = 0 if dead % n_rep else 1    # first surviving replica
@@ -1197,6 +1462,14 @@ def recover_from_failure(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     vec = wal.replay_vector(jnl, ckpt["vec"], survivors=survivors,
                             since=since)
     replayable, undetermined = wal.entry_status(jnl, rep, since=since)
+    if engine is not None:
+        # only the dead server's rows are lost: the replayed reconstruction
+        # replaces them in the survivors' live memory
+        Rs = engine.shard_records
+        for live, rec in zip(store.shard_view(st.nam.table, dead, Rs),
+                             store.shard_view(tbl, dead, Rs)):
+            live.copy_(rec)
+        tbl = st.nam.table
     n_locked = int(hdr_ops.is_locked(tbl.cur_hdr).sum())
     # the monitor scans every thread's journal: any unresolved intent in
     # the live window marks an abandoned transaction whose locks must go
@@ -1204,6 +1477,11 @@ def recover_from_failure(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         jnl, tbl, torch.arange(cfg.n_threads, device=jnl.used.device),
         replica=rep)
     wal.rereplicate(jnl, survivors)
+    if engine is not None:
+        store.shard_table(engine.n_shards, tbl)
+        store.shard_journal(engine.n_shards, jnl)
+        if engine.shard_vector:
+            vec = store.shard_vector(engine.n_shards, vec)
     st = st._replace(nam=st.nam._replace(
         table=tbl, oracle_state=st.nam.oracle_state._replace(vec=vec)))
     report = RecoveryReport(
@@ -1214,6 +1492,107 @@ def recover_from_failure(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         released_locks=n_locked - int(hdr_ops.is_locked(tbl.cur_hdr).sum()),
         recovery_seconds=time.perf_counter() - t0)
     return st, report
+
+
+# ------------------------------------------------------- online scale-out ----
+class MeshGrowth(NamedTuple):
+    """Grow the engine to ``new_shards`` memory servers at the start of
+    round ``grow_round`` of :func:`run_mixed_rounds` (online scale-out,
+    §4.3): a planned §6.2 failover — checkpoint epoch, journal replay,
+    repartition, cutover. The workload keeps its retry queues and draws."""
+    grow_round: int
+    new_shards: int
+
+
+class ScaleOutReport(NamedTuple):
+    """What one online expansion did (on ``MixedRunStats.growth``)."""
+    grow_round: int
+    old_shards: int
+    new_shards: int
+    checkpoint_round: int    # round after which the migration ckpt was taken
+    replayed_entries: int    # journal entries replayed over the window
+    moved_slots: int         # pool slots that changed owning server
+    moved_buckets: int       # §5.2 directory buckets that changed owner
+    migration_seconds: float  # wall clock: halt to workload resumed
+
+
+def scale_out(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
+              oracle: VectorOracle, engine, jnl: wal.Journal,
+              checkpoint_dir: str, growth: MeshGrowth, *, use_gc: bool,
+              move_versions: bool = True, gc_log=None):
+    """Online expansion onto more memory servers (§4.3), on the device.
+
+    1. **Checkpoint epoch.** Restore the last checkpoint and replay the
+       journal onto it (every replica is live): the state of every record
+       at the join point.
+    2. **Repartition.** The moved record ranges
+       (``locality.moved_slots``), vector slots and directory buckets
+       (``hashtable.moved_buckets``, counted) change owner; moved ranges
+       take the replayed reconstruction, the rest keeps its live memory.
+    3. **Cutover.** The pool trimmed to R and re-padded, the vector
+       re-padded, the journal grown to a replica a server and the snapshot
+       logs copied (``store.expand_mesh``), the executors rebuilt, and the
+       new epoch checkpointed, so a later failure restores its shapes.
+
+    Returns ``(state, journal, engine, gc_log, ScaleOutReport)``: a new
+    journal (the caller's keeps the old replicas) and new tensors for the
+    pool and the vector."""
+    t0 = time.perf_counter()
+    old_n, new_n = engine.n_shards, growth.new_shards
+    if new_n <= old_n:
+        raise ValueError(f"scale_out grows the mesh: new_shards ({new_n}) "
+                         f"must exceed the current {old_n}")
+    R, n_slots = lay.catalog.total_records, oracle.n_slots
+    dev = st.nam.table.cur_hdr.device
+
+    # ---- 1. checkpoint epoch + migration-window replay -------------------
+    ckpt, _, manifest = snapshot.restore(checkpoint_dir, _mem_state(st, jnl))
+    since = ckpt["used"]
+    recon_tbl = wal.replay(jnl, ckpt["table"], since=since,
+                           reuse_only=use_gc, move_versions=move_versions)
+    recon_vec = wal.replay_vector(jnl, ckpt["vec"], since=since)
+    replayable, _ = wal.entry_status(jnl, 0, since=since)
+
+    # ---- 2. repartition: moved ranges take the replayed reconstruction ---
+    new_placement = locality.Placement(n_servers=new_n,
+                                       shard_records=-(-R // new_n))
+    moved = locality.moved_slots(engine.placement, new_placement, R,
+                                 device=dev)
+    tbl = mvcc.VersionedTable(*(
+        torch.where(moved.reshape((-1,) + (1,) * (live.dim() - 1)),
+                    rec[:R], live[:R])
+        for live, rec in zip(st.nam.table, recon_tbl)))
+    del recon_tbl
+    sl = torch.arange(n_slots, device=dev)
+    vec_moved = sl // -(-n_slots // old_n) != sl // -(-n_slots // new_n)
+    vec = torch.where(vec_moved, recon_vec[:n_slots],
+                      st.nam.oracle_state.vec[:n_slots])
+    n_moved_buckets = int(ht.moved_buckets(
+        engine.n_dir_buckets, old_n, new_n, device=dev).sum()) \
+        if engine.n_dir_buckets else 0
+
+    # ---- 3. cutover: re-place onto the grown mesh, rebuild executors -----
+    make = make_mixed_engine if isinstance(engine, MixedEngine) \
+        else make_distributed_engine
+    new_engine = make(cfg, lay, new_n, oracle,
+                      shard_vector=engine.shard_vector,
+                      with_journal=engine.with_journal)
+    tbl, vec, directory, jnl, gc_log = store.expand_mesh(
+        new_n, tbl, vec, n_records=R, vector_sharded=engine.shard_vector,
+        directory=st.directory if engine.n_dir_buckets else None,
+        journal=jnl, gc_logs=gc_log)
+    st = st._replace(
+        nam=st.nam._replace(table=tbl, oracle_state=VectorState(vec=vec)),
+        directory=directory if directory is not None else st.directory)
+    snapshot.save(checkpoint_dir, _mem_state(st, jnl),
+                  extra={"round": growth.grow_round - 1, "n_shards": new_n})
+    report = ScaleOutReport(
+        grow_round=growth.grow_round, old_shards=old_n, new_shards=new_n,
+        checkpoint_round=int(manifest["extra"].get("round", -1)),
+        replayed_entries=int(replayable.sum()),
+        moved_slots=int(moved.sum()), moved_buckets=n_moved_buckets,
+        migration_seconds=time.perf_counter() - t0)
+    return st, jnl, new_engine, gc_log, report
 
 
 # ----------------------------------------------------- mixed-round driver ----
@@ -1237,6 +1616,7 @@ class MixedRunStats(NamedTuple):
     reclaim_traj: tuple = ()    # ((round, reclaimable_fraction), ...)
     ovf_peak: int = 0           # max overflow ring position observed
     recovery: tuple = ()        # (RecoveryReport, ...), one a failure
+    growth: tuple = ()          # (ScaleOutReport, ...), one an expansion
 
 
 def _check_layout_homes(cfg: TPCCConfig, lay: TPCCLayout, home_w,
@@ -1259,6 +1639,7 @@ def _check_layout_homes(cfg: TPCCConfig, lay: TPCCLayout, home_w,
 def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                      oracle: VectorOracle, draw: workload.MixedDraw,
                      n_rounds: int, *, home_w=None,
+                     engine: Optional[MixedEngine] = None,
                      locality_mode: Optional[str] = None,
                      move_versions: bool = True, stock_last_n: int = 8,
                      gc_interval: int = 0, max_txn_time: int = 4,
@@ -1266,8 +1647,9 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                      journal: Optional[wal.Journal] = None,
                      checkpoint_dir: Optional[str] = None,
                      failure: Optional[FailureInjector] = None,
+                     growth: Optional[MeshGrowth] = None,
                      device=None):
-    """Closed-loop driver for the full TPC-C mix on one memory server.
+    """Closed-loop driver for the full TPC-C mix.
 
     Each round ``draw(round)`` gives every thread its transaction type and
     inputs; the round runs five type-homogeneous sub-rounds (new-order,
@@ -1279,18 +1661,25 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     ``"oblivious"``) measures the machine-local access share; under the
     warehouse-major layout it needs ``home_w`` = the thread homes the
     draws were pinned to. ``device`` (default ``cuda``) must be where
-    ``st`` lives.
+    ``st`` lives. ``engine=None`` runs on one memory server; with a
+    :class:`MixedEngine` every sub-round runs over its servers (``st``
+    from :func:`distribute_state`).
 
     ``gc_interval``, ``max_txn_time`` and ``gc_snapshots`` are the §5.3
     knobs of :func:`run_neworder_rounds`: one GC sweep every
     ``gc_interval`` rounds, after all five sub-rounds. ``journal`` turns
     the §6.2 WAL on: every write sub-round logs its intents before it
-    installs and its outcomes after the decision, in place.
-    ``checkpoint_dir`` then checkpoints the pool, the vector and the
-    journal's cursors before round 0 and after every GC sweep, so replay
-    never spans a truncation. ``failure`` kills the memory server at the
-    start of its ``kill_round`` and runs :func:`recover_from_failure`
-    before the round; the reports are ``MixedRunStats.recovery``. With
+    installs and its outcomes after the decision, in place (with an
+    engine, build it ``with_journal`` and give the journal a replica a
+    server). ``checkpoint_dir`` then checkpoints the pool, the vector and
+    the journal's cursors before round 0 and after every GC sweep, so
+    replay never spans a truncation. ``failure`` kills a memory server at
+    the start of its ``kill_round`` and runs :func:`recover_from_failure`
+    before the round; the reports are ``MixedRunStats.recovery``.
+    ``growth`` grows the engine onto more servers at the start of its
+    ``grow_round`` (:func:`scale_out`, which needs the journal and the
+    checkpoints; the caller's journal keeps the old replicas from then on);
+    the reports are ``MixedRunStats.growth``. With
     ``failure.in_flight`` the driver calls ``draw(kill_round)`` twice (the
     crash window, then the round itself), so ``draw`` must be a pure
     function of the round: the driver raises if the two draws differ.
@@ -1304,8 +1693,9 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                          f"not on {dev}")
     T = cfg.n_threads
     _check_layout_homes(cfg, lay, home_w, locality_mode)
-    placement = locality.Placement(n_servers=1,
-                                   shard_records=lay.catalog.total_records)
+    placement = engine.placement if engine is not None else \
+        locality.Placement(n_servers=1,
+                           shard_records=lay.catalog.total_records)
     names = workload.TXN_TYPES
     tids = torch.arange(T, dtype=torch.int32, device=dev)
     # per sub-round counters stay on the device until the end of the run:
@@ -1315,13 +1705,27 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     pending_type = torch.full((T,), -1, dtype=torch.int32, device=dev)
     pending = None
     use_gc = gc_interval > 0
-    gc_log = _gc_init(oracle, gc_interval, gc_snapshots, dev)
-    reclaim_traj, recovery = [], []
+    gc_log = _gc_init(oracle, engine, gc_interval, gc_snapshots, dev)
+    reclaim_traj, recovery, growth_reports = [], [], []
     jnl = journal
     if failure is not None and (jnl is None or checkpoint_dir is None):
         raise ValueError("failure injection needs a journal and a "
                          "checkpoint_dir: §6.2 recovery replays the "
                          "surviving journals onto the last checkpoint")
+    if jnl is not None and engine is not None and not engine.with_journal:
+        raise ValueError("journaling through the mesh needs an engine "
+                         "built with with_journal=True")
+    if growth is not None:
+        if engine is None or jnl is None or checkpoint_dir is None:
+            raise ValueError("online scale-out needs a mesh engine, a "
+                             "journal and a checkpoint_dir: §4.3 migration "
+                             "replays the journal onto the last checkpoint")
+        if not 0 <= growth.grow_round < n_rounds:
+            raise ValueError(f"grow_round {growth.grow_round} outside the "
+                             f"{n_rounds}-round run")
+        if growth.new_shards <= engine.n_shards:
+            raise ValueError(f"new_shards ({growth.new_shards}) must exceed "
+                             f"the current mesh ({engine.n_shards})")
     if jnl is not None and checkpoint_dir is not None:
         snapshot.save(checkpoint_dir, _mem_state(st, jnl),
                       extra={"round": -1})
@@ -1353,9 +1757,15 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                 _inflight_intents(cfg, lay, st, jnl, _merge_retries(
                     pending, crash_draw, pending_type >= 0, T), r)
             st, rep = recover_from_failure(
-                cfg, lay, st, None, jnl, checkpoint_dir, failure,
+                cfg, lay, st, engine, jnl, checkpoint_dir, failure,
                 use_gc=use_gc, move_versions=move_versions)
             recovery.append(rep)
+        if growth is not None and r == growth.grow_round:
+            st, jnl, engine, gc_log, grep = scale_out(
+                cfg, lay, st, oracle, engine, jnl, checkpoint_dir, growth,
+                use_gc=use_gc, move_versions=move_versions, gc_log=gc_log)
+            placement = engine.placement
+            growth_reports.append(grep)
         fresh = draw(r)
         if crash_draw is not None and not _same_inputs(crash_draw, fresh):
             raise ValueError(
@@ -1371,8 +1781,13 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         # ---- write transactions, one type-homogeneous sub-round each ----
         if n_of[0]:
             act = ttype == 0
-            out = neworder_round(cfg, lay, st, oracle, inp.neworder,
-                                 round_no=r, active=act, journal=jnl)
+            if engine is None:
+                out = neworder_round(cfg, lay, st, oracle, inp.neworder,
+                                     round_no=r, active=act, journal=jnl)
+            else:
+                out = neworder_round_distributed(
+                    cfg, lay, st, oracle, engine, inp.neworder, round_no=r,
+                    active=act, journal=jnl)
             st = out.state
             aborted |= acc("neworder", act, out.committed, out.ops,
                            out.snapshot_miss, out.vis)
@@ -1380,8 +1795,13 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                       out.batch.read_slots, out.batch.read_mask)
         if n_of[1]:
             act = ttype == 1
-            pay = payment_round(cfg, lay, st, oracle, inp.payment,
-                                active=act, round_no=r, journal=jnl)
+            if engine is None:
+                pay = payment_round(cfg, lay, st, oracle, inp.payment,
+                                    active=act, round_no=r, journal=jnl)
+            else:
+                pay = payment_round_distributed(
+                    cfg, lay, st, oracle, engine, inp.payment, active=act,
+                    round_no=r, journal=jnl)
             st = pay.state
             aborted |= acc("payment", act, pay.committed, pay.ops,
                            pay.snapshot_miss, pay.vis)
@@ -1389,8 +1809,13 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                       pay.batch.read_slots, pay.batch.read_mask)
         if n_of[3]:
             act = ttype == 3
-            dl = delivery_round(cfg, lay, st, oracle, inp.delivery,
-                                active=act, round_no=r, journal=jnl)
+            if engine is None:
+                dl = delivery_round(cfg, lay, st, oracle, inp.delivery,
+                                    active=act, round_no=r, journal=jnl)
+            else:
+                dl = delivery_round_distributed(
+                    cfg, lay, st, oracle, engine, inp.delivery, active=act,
+                    round_no=r, journal=jnl)
             st = dl.state
             aborted |= acc("delivery", act, dl.committed, dl.ops,
                            dl.snapshot_miss, dl.vis)
@@ -1402,14 +1827,15 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         if n_of[2]:
             act = ttype == 2
             ro = orderstatus_round(cfg, lay, st, oracle, inp.orderstatus,
-                                   active=act)
+                                   engine=engine, active=act)
             acc("orderstatus", act, act, ro.ops)
             acc_local(inp.orderstatus.w_id, inp.orderstatus.d_id,
                       ro.read_slots, ro.read_mask)
         if n_of[4]:
             act = ttype == 4
             sl = stocklevel_round(cfg, lay, st, oracle, inp.stocklevel,
-                                  active=act, last_n=stock_last_n)
+                                  engine=engine, active=act,
+                                  last_n=stock_last_n)
             acc("stocklevel", act, act, sl.ops)
             acc_local(inp.stocklevel.w_id, inp.stocklevel.d_id,
                       sl.read_slots, sl.read_mask)
@@ -1419,7 +1845,7 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         if move_versions:
             mvcc.version_mover(st.nam.table, reuse_only=use_gc)
         if use_gc and (r + 1) % gc_interval == 0:
-            frac = _gc_sweep(lay, st, gc_log, r, max_txn_time)
+            frac = _gc_sweep(lay, st, engine, gc_log, r, max_txn_time)
             reclaim_traj.append((r, frac))
             if jnl is not None and checkpoint_dir is not None:
                 # a checkpoint at every sweep: replay from the last one
@@ -1458,7 +1884,8 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         contention_aborts=contention_aborts, ovf_reads=ovf_reads,
         gc_sweeps=len(reclaim_traj), reclaim_traj=tuple(reclaim_traj),
         ovf_peak=max([0] + torch.stack(ovf_peaks).tolist())
-        if ovf_peaks else 0, recovery=tuple(recovery))
+        if ovf_peaks else 0, recovery=tuple(recovery),
+        growth=tuple(growth_reports))
     return st, stats
 
 

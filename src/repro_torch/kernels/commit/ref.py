@@ -1,7 +1,8 @@
 """Plain PyTorch version of the fused commit: the production commit body
 ``si.commit_write_sets`` followed by the vector oracle's make-visible
 scatter-max — exactly what ``si.run_round`` runs when ``fused_commit`` is
-off."""
+off. Its decide-only mode is ``si.decide_write_sets``, which writes
+nothing."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -15,7 +16,9 @@ from repro_torch.core.mvcc import VersionedTable
 
 class FusedCommitOut(NamedTuple):
     """Post-commit state and outcome masks. ``release_mask`` is not
-    materialized: it is ``granted & ~committed[txn_of_req]``."""
+    materialized: it is ``granted & ~committed[txn_of_req]``. A
+    decide-only call decides nothing: ``granted``, ``committed`` and
+    ``do_install`` are None and ``fails`` is its only result."""
     table: VersionedTable
     vec: torch.Tensor         # int32 [n_slots] (uint32 words)
     granted: torch.Tensor     # bool  [Q]
@@ -37,9 +40,17 @@ def make_visible(vec, txn_slot, cts, committed):
 
 def fused_commit_ref(table: VersionedTable, vec, req_slots, req_expected,
                      req_prio, req_active, txn_of_req, new_hdr, new_data,
-                     txn_ok, txn_slot, cts, ext_fails) -> FusedCommitOut:
+                     txn_ok, txn_slot, cts, ext_fails, *,
+                     decide_only: bool = False) -> FusedCommitOut:
     """Same signature and contract as ``ops.fused_commit``: ``table`` and
-    ``vec`` are updated in place and returned in the result."""
+    ``vec`` are updated in place and returned in the result; with
+    ``decide_only`` neither is written."""
+    if decide_only:
+        fails = si.decide_write_sets(table, req_slots, req_expected,
+                                     req_prio, req_active, txn_of_req,
+                                     txn_ok.shape[0])
+        return FusedCommitOut(table=table, vec=vec, granted=None,
+                              committed=None, do_install=None, fails=fails)
     co = si.commit_write_sets(table, req_slots, req_expected, req_prio,
                               req_active, txn_of_req, new_hdr, new_data,
                               txn_ok, ext_fails=ext_fails)

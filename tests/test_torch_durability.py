@@ -241,10 +241,14 @@ def test_failure_needs_a_journal_and_a_checkpoint(start):
         tpcc.run_mixed_rounds(cfg, lay, st, VectorOracle(cfg.n_threads),
                               lambda r: draws[r], 1, device="cpu",
                               failure=tpcc.FailureInjector(kill_round=0))
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        tpcc.recover_from_failure(cfg, lay, st, object(), None, "",
-                                  tpcc.FailureInjector(kill_round=0),
-                                  use_gc=False)
+    # over memory servers, the dead server must be one of them
+    oracle = VectorOracle(cfg.n_threads)
+    engine = tpcc.make_mixed_engine(cfg, lay, 2, oracle)
+    jnl = tpcc.make_journal(cfg, oracle, capacity_rounds=1, device="cpu")
+    with pytest.raises(ValueError, match="outside the 2-server mesh"):
+        tpcc.recover_from_failure(
+            cfg, lay, st, engine, jnl, "",
+            tpcc.FailureInjector(kill_round=0, dead_server=2), use_gc=False)
 
 
 # ------------------------------------------------------------ checkpoints --

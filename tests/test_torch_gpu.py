@@ -19,11 +19,11 @@ import pytest
 import torch
 
 from repro_torch._u32 import np_to_i32
-from repro_torch.core import hashtable as tht, mvcc as tmvcc
-from repro_torch.core.tsoracle import VectorOracle
+from repro_torch.core import hashtable as tht, mvcc as tmvcc, store
+from repro_torch.core.tsoracle import PartitionedVectorOracle, VectorOracle
 from repro_torch.db import tpcc, workload
 from repro_torch.kernels.commit import ops as commit_ops
-from repro_torch.kernels.commit.ref import fused_commit_ref
+from repro_torch.kernels.commit.ref import fused_commit_ref, make_visible
 from repro_torch.kernels._cuda import MAX_SMEM
 from repro_torch.kernels.hash_probe import ops as probe_ops
 from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
@@ -841,6 +841,148 @@ def test_durable_mix_kernels_match_plain_path_on_card(tmp_path):
     _assert_leaves_equal(_leaves(cpu_st), _leaves(st),
                          [str(i) for i in range(len(_leaves(st)))])
     _assert_leaves_equal(cpu_jnl, jnl, cpu_jnl._fields)
+
+
+# ------------------------------------------------------ memory servers ----
+def decide_cases():
+    """The commit cases a decide-only launch is held on."""
+    cases = [(f"lattice{s}", commit_case(s)) for s in (0, 1, 2)]
+    cases += [(f"oob-{n}{'-same_prio' if sp else ''}", commit_oob_case(n, sp))
+              for sp in (False, True) for n in OOB_SLOTS]
+    cases += [("dup-one_txn", commit_dup_case(False)),
+              ("dup-two_txns", commit_dup_case(True)),
+              ("many", commit_many_case(0))]
+    return cases
+
+
+DECIDE_IDS = [name for name, _ in decide_cases()]
+
+
+def mesh_commit(case, S, fused, device="cpu"):
+    """``case``'s commit over ``S`` servers of its table (contiguous views
+    of ``R / S`` records) through ``store.commit_on_servers``: with
+    ``fused`` the decide/apply double launch a server (the plain twins on
+    the CPU), else the plain rendering, then make-visible. The case's
+    ``ext_fails`` is left out: the servers' failures are the remote ones.
+    Returns the table planes, the vector, granted and do_install [S, Q]
+    and the decision."""
+    tbl, args = case
+    table = port_table(tbl, device)
+    vec, slots, expected, prio, act, txn, new_hdr, new_data, txn_ok, \
+        txn_slot, cts, _ = (_t(a, device) for a in args)
+    committed, granted, do_install = store.commit_on_servers(
+        table, vec, S, slots, expected, prio, act, txn, new_hdr, new_data,
+        txn_ok, txn_slot, cts, fused_commit=fused)
+    if not fused:
+        make_visible(vec, txn_slot, cts, committed)
+    return tuple(table) + (vec, granted, do_install, committed)
+
+
+MESH_OUT = COMMIT_OUT[:9] + ("granted", "do_install", "committed")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", DECIDE_IDS)
+def test_decide_only_launch_writes_nothing_on_card(name):
+    """A decide-only launch leaves every table plane, the vector and the
+    arbitration table as they were, returns no decision, and its failure
+    counts equal the plain twin's."""
+    dev = _cuda()
+    tbl, args = dict(decide_cases())[name]
+    table = port_table(tbl, dev)
+    targs = [_t(a, dev) for a in args]
+    before = [t.clone() for t in table] + [targs[0].clone()]
+    n = commit_ops.fused_commit.launches
+    out = commit_ops.fused_commit(table, *targs, decide_only=True)
+    torch.cuda.synchronize()
+    assert commit_ops.fused_commit.launches == n + 1
+    assert out.granted is None and out.committed is None \
+        and out.do_install is None
+    for a, b in zip(before, list(table) + [targs[0]]):
+        assert torch.equal(a, b)
+    _arbitration_tables_clean()
+    plain = fused_commit_ref(port_table(tbl), *(_t(a) for a in args),
+                             decide_only=True)
+    assert torch.equal(out.fails.cpu(), plain.fails)
+    assert bool((plain.fails > 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("name", ["lattice0", "oob-R-1-same_prio",
+                                  "dup-two_txns", "many"])
+def test_decide_apply_on_shard_views_matches_plain_on_card(name, S):
+    """The adversarial commit cases over ``S`` servers: each server's
+    decide and apply launch on its view equal the plain mesh path (and the
+    plain twins), and the arbitration table is clean after every
+    launch."""
+    dev = _cuda()
+    case = dict(decide_cases())[name]
+    n = (commit_ops.fused_commit.launches,
+         commit_ops.fused_commit.decide_launches)
+    ker = mesh_commit(case, S, True, dev)
+    torch.cuda.synchronize()
+    assert (commit_ops.fused_commit.launches - n[0],
+            commit_ops.fused_commit.decide_launches - n[1]) == (2 * S, S)
+    _arbitration_tables_clean()
+    plain = mesh_commit(case, S, False)
+    _assert_leaves_equal(plain, ker, MESH_OUT)
+    _assert_leaves_equal(mesh_commit(case, S, True), ker, MESH_OUT)
+    granted, committed = plain[9], plain[11]
+    assert committed.any() and (~committed).any() and granted.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,key_addressed", [(2, True), (3, False)])
+def test_mesh_rounds_kernels_match_plain_path_on_card(S, key_addressed):
+    """Three new-order rounds and three mix rounds over ``S`` servers
+    through both kernels on the card (a locate-only probe a server, a
+    decide and an apply launch a server in every write sub-round) equal
+    the plain path over the servers on the CPU, state leaf for state
+    leaf."""
+    dev = _cuda()
+    cfg = tpcc.TPCCConfig(n_warehouses=2, customers_per_district=8,
+                          n_items=64, n_threads=16, orders_per_thread=16,
+                          dist_degree=50.0, key_addressed=key_addressed,
+                          fused_commit=True, batched_probe=True)
+    plain = tpcc.TPCCConfig(**{**cfg.__dict__, "fused_commit": False,
+                               "batched_probe": False})
+    oracle = PartitionedVectorOracle(cfg.n_threads, n_parts=S)
+    lay, st = tpcc.init_tpcc(cfg, oracle, device=dev)
+    cpu_st = _to(st, "cpu")
+    engine = tpcc.make_mixed_engine(cfg, lay, S, oracle, shard_vector=True)
+    cpu_engine = tpcc.make_mixed_engine(plain, lay, S, oracle,
+                                        shard_vector=True)
+    st = tpcc.distribute_state(engine, st)
+    cpu_st = tpcc.distribute_state(cpu_engine, cpu_st)
+    gen = torch.Generator().manual_seed(11)
+    no = workload.neworder_stream(cfg, gen)
+    mix = workload.mixed_stream(cfg, gen)
+    no_draws = [no(r) for r in range(3)]
+    mix_draws = [mix(r) for r in range(3)]
+    n = (probe_ops.batched_probe.launches, commit_ops.fused_commit.launches)
+    st, stats = tpcc.run_neworder_rounds(
+        cfg, lay, st, oracle, lambda r: _to(no_draws[r], dev), 3,
+        engine=engine, device=dev)
+    torch.cuda.synchronize()
+    assert (probe_ops.batched_probe.launches - n[0],
+            commit_ops.fused_commit.launches - n[1]) == (3 * S, 6 * S)
+    cpu_st, cpu_stats = tpcc.run_neworder_rounds(
+        plain, lay, cpu_st, oracle, lambda r: no_draws[r], 3,
+        engine=cpu_engine, device="cpu")
+    assert stats.commits == cpu_stats.commits > 0
+    assert torch.equal(stats.committed.cpu(), cpu_stats.committed)
+    st, mstats = tpcc.run_mixed_rounds(
+        cfg, lay, st, oracle, lambda r: _to(mix_draws[r], dev), 3,
+        engine=engine, device=dev)
+    cpu_st, cpu_mstats = tpcc.run_mixed_rounds(
+        plain, lay, cpu_st, oracle, lambda r: mix_draws[r], 3,
+        engine=cpu_engine, device="cpu")
+    for f in cpu_mstats._fields:
+        if f != "local_fraction":
+            assert getattr(mstats, f) == getattr(cpu_mstats, f), f
+    _assert_leaves_equal(_leaves(cpu_st), _leaves(st),
+                         [str(i) for i in range(len(_leaves(st)))])
 
 
 def _to(x, device):
