@@ -5,7 +5,7 @@ against their plain PyTorch versions.
     python3 chip_smoke.py [--rounds 32] [--mix-rounds 32] [--probe-rounds 8]
                           [--seed 0] [--profile-rounds 4] [--lm-reps 20]
                           [--durable-rounds 8] [--shards 4]
-                          [--shard-rounds 8]
+                          [--shard-rounds 8] [--oracle-rounds 32]
 
 Phases, each fatal on failure:
 
@@ -125,7 +125,33 @@ Phases, each fatal on failure:
    undetermined. (c) The same run born on S / 2 servers and grown to S at
    round 3 must equal (a), and its report must show moved slots and
    buckets. It prints each sub-phase's seconds, ``recovery_seconds`` and
-   ``migration_seconds``, each beside the card's name and power limit.
+   ``migration_seconds``, each beside the card's name and power limit;
+11. the timestamp oracles (paper §3.1, §4.2). (a) At phase 2's
+   deployment, from the loaded state, ``--oracle-rounds`` (n) full-mix
+   rounds under each of ``VectorOracle(60)``,
+   ``CompressedVectorOracle(60, threads_per_server=60)`` (one compute
+   server co-located with its memory server, NAM-DB §7: the 60 threads
+   share one slot) and ``NaiveOracleAdapter(60, capacity=1 << 16)`` (the
+   global counter's own capacity), on the same draws: for each, the kernel
+   path against the plain path from a cloned start (every sub-round's
+   outcomes, every statistic, the final state with the oracle's whole
+   state) and both kernels once in every write sub-round; across oracles,
+   every sub-round's outcomes and the payloads must equal the vector
+   oracle's (the headers differ by design). Each oracle's round medians,
+   kernel path and plain, and two profiled rounds (launches and host
+   synchronisations a round, which must not exceed the vector oracle's)
+   are printed, and the naive counter beside its capacity. (b) Phase 10's
+   deployment on its loaded pool under ``CompressedVectorOracle(60 S,
+   threads_per_server=60)``, the vector replicated (S slots): ``--shard-
+   rounds`` journalled mix rounds with a GC sweep every 2 rounds over the
+   servers with both kernels, against the plain path over the servers and
+   the one-server driver with the kernels (outcomes, statistics, journal,
+   state). (c) ``si.run_rounds``: 16 rounds of a seeded synthetic stream
+   of 60 transactions (8 distinct reads over the pool's first 2,048
+   records, 4 writes inside them) with ``staleness`` 0 and 2, the kernel
+   path against the plain path bit for bit; and from each round's shared
+   start a 2-stale snapshot must commit a subset of what the fresh one
+   commits, with some extra abort.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -155,8 +181,11 @@ from repro_torch.checkpoint import snapshot  # noqa: E402
 from repro_torch.core import gc as gc_ops, store, wal  # noqa: E402
 from repro_torch.core import hashtable as ht, mvcc  # noqa: E402
 from repro_torch.core import header as hdr_ops  # noqa: E402
+from repro_torch.core import si, tsoracle  # noqa: E402
 from repro_torch.core.tsoracle import VectorOracle  # noqa: E402
 from repro_torch.core.tsoracle import PartitionedVectorOracle  # noqa: E402
+from repro_torch.core.tsoracle import CompressedVectorOracle  # noqa: E402
+from repro_torch.core.tsoracle import NaiveOracleAdapter  # noqa: E402
 from repro_torch.db import tpcc, workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.commit import ops as commit_ops  # noqa: E402
@@ -1451,12 +1480,13 @@ def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
 OURS = ("batched_probe_kernel", "hash_probe_kernel", "fused_commit_kernel")
 
 
-def print_profile(label, n_rounds, wall_us, busy_us, rows, syncs):
+def print_profile(label, n_rounds, wall_us, busy_us, rows, syncs, note=""):
     """The breakdown, and per round the host synchronisations and each of
-    ``OURS``' CUDA launches; returns the latter two."""
+    ``OURS``' CUDA launches; returns the latter two. ``note`` ends the
+    first and the last line."""
     print(f"profile, {label}: {n_rounds} rounds, wall {wall_us / 1e3:.3f} "
           f"ms, device busy {busy_us / 1e3:.3f} ms (idle share "
-          f"{1 - busy_us / wall_us:.3f})")
+          f"{1 - busy_us / wall_us:.3f}){note}")
     shown = rows[:14] + [r for r in rows[14:]
                          if any(k in r[0] for k in OURS)]
     for key, t_us, count in shown:
@@ -1466,16 +1496,17 @@ def print_profile(label, n_rounds, wall_us, busy_us, rows, syncs):
     per_round = {k: v / n_rounds for k, v in syncs.items()}
     print(f"  per round: CUDA launches {launches}; host synchronisations "
           f"{per_round} ({', '.join(SYNC_CALLS)} calls; device-to-host "
-          f"copies)")
+          f"copies){note}")
     return launches, per_round
 
 
-def print_round_times(label, rounds, commits, what):
+def print_round_times(label, rounds, commits, what, note=""):
     q = torch.tensor(rounds[1:] or rounds, dtype=torch.float64) * 1e3
     print(f"round time, {label}: first {rounds[0] * 1e3:.3f} ms, then "
           f"median {q.median():.3f} ms, min {q.min():.3f}, max "
           f"{q.max():.3f} over {len(q)} rounds (host clock); "
-          f"{commits / sum(rounds):.1f} committed {what}/s")
+          f"{commits / sum(rounds):.1f} committed {what}/s{note}")
+    return q.median().item()
 
 
 # ------------------------------------------------------- durability ----
@@ -2004,6 +2035,17 @@ def same_stats(a, b, what, skip=()):
               f"{what}: statistic {f} differs")
 
 
+def same_logs(a, b, what):
+    """Two ``SubRounds`` logs ran the same sub-rounds with the same
+    outcomes."""
+    check([x for x, _, _ in a] == [x for x, _, _ in b],
+          f"{what}: the runs ran other sub-rounds")
+    for i, ((x, p, _), (_, q, _)) in enumerate(zip(a, b)):
+        err = max_abs_err(p, q)
+        check(err == 0, f"{what}: sub-round {i} ({x}) outcomes differ (max "
+                        f"|diff| {err})")
+
+
 def run_shard_phase(args, dev, smi):
     """Phase 10 (see the module docstring). Returns ``(records,
     launches)``: ``{name: (max_abs_err, timing)}`` of the locate-only
@@ -2074,12 +2116,8 @@ def run_shard_phase(args, dev, smi):
                            oracle=oracle)
     mk = runs["mesh, kernels"]
     for label, run in runs.items():
-        check([x for x, _, _ in run["sub"].log]
-              == [x for x, _, _ in mk["sub"].log],
-              f"{label} ran other sub-rounds than the mesh with kernels")
-        for i, ((x, a, _), (_, b, _)) in enumerate(zip(mk["sub"].log,
-                                                       run["sub"].log)):
-            same(a, b, f"sharded sub-round {i} ({x}) outcomes, {label}")
+        same_logs(mk["sub"].log, run["sub"].log,
+                  f"sharded mix, {label} against the mesh with kernels")
         same_stats(mk["stats"], run["stats"], f"sharded mix, {label}")
         for f, a, b in zip(wal.Journal._fields, mk["jnl"], run["jnl"]):
             check(torch.equal(a, b), f"sharded journal leaf {f} differs, "
@@ -2216,7 +2254,267 @@ def run_shard_phase(args, dev, smi):
     print(f"sharded (c): {time.perf_counter() - t0:.2f} s | {smi}")
     print(f"sharded store phase: {time.perf_counter() - t_phase:.2f} s | "
           f"{smi}")
-    return records, mk["launches"]
+    return records, mk["launches"], st0
+
+
+# ---------------------------------------------------- timestamp oracles ----
+# phase 11 (c): rounds of the synthetic stream, its hot records (the
+# pool's first), and each transaction's read and write set
+SI_ROUNDS, SI_HOT, SI_RS, SI_WS = 16, 2048, 8, 4
+WRITE_ROUNDS = ("neworder_round", "payment_round", "delivery_round")
+
+
+def with_oracle(st, oracle, dev):
+    """A clone of the loaded state ``st`` under ``oracle``: the pool does
+    not depend on the oracle, so this is ``init_tpcc`` under it."""
+    st = clone(st)
+    return st._replace(nam=st.nam._replace(oracle_state=oracle.init(dev)))
+
+
+def oracle_note(oracle, state):
+    """The oracle's state in a few words."""
+    if isinstance(oracle, NaiveOracleAdapter):
+        g = state.gc
+        return (f"counter {int(u64(g.cts))} against capacity "
+                f"{oracle.inner.capacity}, rts {int(u64(g.rts))}, "
+                f"{int(g.bitmap.sum())} bits set")
+    return f"{oracle.n_slots} slots summing to " \
+        f"{tsoracle.snapshot_summary(state.vec)}"
+
+
+def per_write_call(sub, n_probe, n_commit, what):
+    """Both kernels launched ``n_probe`` and ``n_commit`` times in every
+    write sub-round of ``sub``'s log (and some ran)."""
+    per_call = [(x, d) for x, _, d in sub.log if x in WRITE_ROUNDS]
+    check(bool(per_call) and all(
+        d["batched_probe"] == n_probe and d["fused_commit"] == n_commit
+        for _, d in per_call),
+        f"{what}: not {n_probe} probe and {n_commit} commit launches in "
+        f"every write sub-round: {per_call}")
+
+
+def run_oracle_mix(args, dev, smi, cfg, plain_cfg, lay, st_load):
+    """Phase 11 (a) (see the module docstring). Returns each oracle's
+    launch counts."""
+    n, T = args.oracle_rounds, cfg.n_threads
+    gen = lambda k: torch.Generator(device=dev).manual_seed(args.seed + k)
+    draw, pdraw = (workload.mixed_stream(cfg, gen(k)) for k in (20, 21))
+    draws = [draw(r) for r in range(n)]
+    pdraws = [pdraw(r) for r in range(2)]
+    oracles = {"vector": VectorOracle(T),
+               "compressed": CompressedVectorOracle(T, threads_per_server=T),
+               "naive": NaiveOracleAdapter(T, capacity=1 << 16)}
+    launches, profiles, medians, ref = {}, {}, {}, None
+    for name, oracle in oracles.items():
+        t0 = time.perf_counter()
+        st_k = with_oracle(st_load, oracle, dev)
+        st_p = clone(st_k)
+        reset_launch_counts()
+        with SubRounds() as sub_k:
+            st_k, stats_k, rounds_k = timed_run(
+                tpcc.run_mixed_rounds, cfg, lay, st_k, oracle,
+                lambda r: draws[r], n)
+        launches[name] = launch_counts()
+        with SubRounds() as sub_p:
+            st_p, stats_p, rounds_p = timed_run(
+                tpcc.run_mixed_rounds, plain_cfg, lay, st_p, oracle,
+                lambda r: draws[r], n)
+        what = f"oracle mix ({name})"
+        same_logs(sub_k.log, sub_p.log, f"{what}, kernels against plain")
+        same_stats(stats_k, stats_p, what)
+        same(st_k, st_p, f"{what}, final state with the oracle's")
+        per_write_call(sub_k, 1, 1, what)
+        del st_p
+        # across oracles: the vector oracle's decisions and payloads (the
+        # headers differ by design: a server's slot, or slot 0)
+        if ref is None:
+            ref = (sub_k.log, st_k.nam.table.cur_data.clone(), stats_k)
+        else:
+            same_logs(sub_k.log, ref[0], f"{what} against the vector oracle")
+            check(torch.equal(st_k.nam.table.cur_data, ref[1]),
+                  f"{what}: payloads differ from the vector oracle's")
+            same_stats(stats_k, ref[2], f"{what} against the vector oracle",
+                       skip=("ops",))
+        check(stats_k.total_commits > 0, f"{what}: nothing committed")
+        print(f"oracle mix ({name}): {n} rounds, launches {launches[name]}; "
+              f"kernels and plain path identical in {len(sub_k.log)} "
+              f"sub-rounds, the statistics and the final state with the "
+              f"oracle's; commits {stats_k.commits}"
+              + ("" if name == "vector" else
+                 ", decisions and payloads equal the vector oracle's")
+              + f"; {oracle_note(oracle, st_k.nam.oracle_state)} | {smi}")
+        medians[name] = [print_round_times(
+            f"oracle mix ({name}), {label}", rounds, stats_k.total_commits,
+            "transactions", f" | {smi}")
+            for label, rounds in (("kernels", rounds_k), ("plain", rounds_p))]
+        profiles[name] = print_profile(
+            f"oracle mix ({name})", 2, *profile_rounds(
+                tpcc.run_mixed_rounds, cfg, lay, st_k, oracle,
+                lambda r: pdraws[r], 2), note=f" | {smi}")
+        del st_k
+        print(f"oracle mix ({name}): {time.perf_counter() - t0:.2f} s | "
+              f"{smi}")
+    for name, (cuda, syncs) in profiles.items():
+        base = profiles["vector"][1]
+        check(all(syncs[k] <= base[k] for k in base),
+              f"oracle mix ({name}): more host synchronisations a round "
+              f"than under the vector oracle: {syncs} against {base}")
+    print("oracle mix, round medians (kernels, plain; ms, host clock): "
+          + ", ".join(f"{k} {a:.3f}, {b:.3f}" for k, (a, b) in
+                      medians.items())
+          + "; host syncs a round: "
+          + ", ".join(f"{k} {v[1]}" for k, v in profiles.items())
+          + f" | {smi}")
+    return {f"oracle_mix_{k}": v for k, v in launches.items()}
+
+
+def run_oracle_shards(args, dev, smi, st0):
+    """Phase 11 (b) on phase 10's loaded pool ``st0``. Returns the
+    launch counts of the run over the servers with the kernels."""
+    S, n = args.shards, args.shard_rounds
+    cfg = shard_config(S)
+    plain_cfg = dataclasses.replace(cfg, fused_commit=False,
+                                    batched_probe=False)
+    lay = tpcc.make_layout(cfg)
+    R, T = lay.catalog.total_records, cfg.n_threads
+    oracle = CompressedVectorOracle(T, threads_per_server=T // S)
+    draw = workload.mixed_stream(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed + 22))
+    draws = [draw(r) for r in range(n)]
+    t0 = time.perf_counter()
+    runs = {}
+    for label, c, mesh in (("mesh, kernels", cfg, True),
+                           ("mesh, plain", plain_cfg, True),
+                           ("one server, kernels", cfg, False)):
+        st, engine = with_oracle(st0, oracle, dev), None
+        jnl = tpcc.make_journal(c, oracle, capacity_rounds=n + 2,
+                                n_replicas=S, device=dev)
+        if mesh:
+            engine = tpcc.make_mixed_engine(c, lay, S, oracle,
+                                            shard_vector=False,
+                                            with_journal=True)
+            st = tpcc.distribute_state(engine, st)
+            jnl = store.shard_journal(S, jnl)
+        driver = functools.partial(tpcc.run_mixed_rounds, engine=engine,
+                                   journal=jnl, **DURABLE_GC)
+        reset_launch_counts()
+        with SubRounds(mesh=mesh) as sub:
+            st, stats, rounds = timed_run(driver, c, lay, st, oracle,
+                                          lambda r: draws[r], n)
+        runs[label] = dict(st=st, stats=stats, rounds=rounds, jnl=jnl,
+                           sub=sub, launches=launch_counts(decide=True))
+    mk = runs["mesh, kernels"]
+    for label, run in runs.items():
+        same_logs(mk["sub"].log, run["sub"].log,
+                  f"oracle shards, {label} against the mesh with kernels")
+        same_stats(mk["stats"], run["stats"], f"oracle shards, {label}")
+        for f, a, b in zip(wal.Journal._fields, mk["jnl"], run["jnl"]):
+            check(torch.equal(a, b), f"oracle shards: journal leaf {f} "
+                                     f"differs, {label}")
+        same(unplaced(mk["st"], R, oracle.n_slots),
+             unplaced(run["st"], R, oracle.n_slots),
+             f"oracle shards, final state, {label}")
+    per_write_call(mk["sub"], S, 2 * S, "oracle shards")
+    check(mk["stats"].total_commits > 0, "oracle shards: nothing committed")
+    print(f"oracle shards: {n} mix rounds of CompressedVectorOracle({T}, "
+          f"threads_per_server={T // S}) ({oracle.n_slots} slots, the vector "
+          f"replicated) over {S} servers, launches {mk['launches']}; "
+          f"kernels and plain path over the servers and the one-server "
+          f"driver identical in {len(mk['sub'].log)} sub-rounds, the "
+          f"statistics, every journal leaf and the final state; commits "
+          f"{mk['stats'].commits}; "
+          f"{oracle_note(oracle, mk['st'].nam.oracle_state)} | {smi}")
+    for label, run in runs.items():
+        print_round_times(f"oracle shards, {label}", run["rounds"],
+                          run["stats"].total_commits, "transactions",
+                          f" | {smi}")
+    print(f"oracle shards: {time.perf_counter() - t0:.2f} s | {smi}")
+    return {"oracle_sharded_compressed": mk["launches"]}
+
+
+def si_stream(dev, seed, n_rounds, T):
+    """``n_rounds`` batches of ``T`` transactions over the pool's first
+    ``SI_HOT`` records, as ``tests/_si_common.gen_batch`` builds them:
+    distinct reads a transaction, distinct write refs into them, every
+    written ref a masked read."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    out = []
+    for _ in range(n_rounds):
+        slots = rand(T, SI_HOT).argsort(dim=1)[:, :SI_RS]
+        read_mask = rand(T, SI_RS) < 0.9
+        wref = rand(T, SI_RS).argsort(dim=1)[:, :SI_WS]
+        write_mask = rand(T, SI_WS) < 0.7
+        read_mask.scatter_(1, wref, read_mask.gather(1, wref) | write_mask)
+        out.append(si.TxnBatch(
+            tid=torch.arange(T, dtype=torch.int32, device=dev),
+            read_slots=slots.to(torch.int32), read_mask=read_mask,
+            write_ref=wref.to(torch.int32), write_mask=write_mask))
+    return out
+
+
+def si_compute(rh, rd, vec):
+    return rd[:, :SI_WS, :] + 1
+
+
+def run_si_rounds(args, dev, smi, T, table0):
+    """Phase 11 (c) over a clone of the loaded pool ``table0``. Returns
+    the launch counts of the kernel runs."""
+    t0 = time.perf_counter()
+    batches = si_stream(dev, args.seed + 23, SI_ROUNDS, T)
+    oracle = VectorOracle(T)
+    launches = {}
+    for k in (0, 2):
+        runs = []
+        for kern in (True, False):
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            out = si.run_rounds(clone(table0), oracle, oracle.init(dev),
+                                lambda r: batches[r], si_compute, SI_ROUNDS,
+                                staleness=k, fused_commit=kern,
+                                batched_probe=kern)
+            torch.cuda.synchronize()
+            runs.append((out, time.perf_counter() - t1, launch_counts()))
+        (ker, sec_k, n_k), (plain, sec_p, _) = runs
+        check(n_k["batched_probe"] == n_k["fused_commit"] == SI_ROUNDS,
+              f"run_rounds (staleness {k}): not one launch of each kernel "
+              f"a round: {n_k}")
+        same(ker, plain, f"run_rounds (staleness {k})")
+        launches[f"si_run_rounds_staleness_{k}"] = n_k
+        print(f"si.run_rounds, staleness {k}: {SI_ROUNDS} rounds of {T} "
+              f"transactions ({SI_RS} reads, {SI_WS} writes over {SI_HOT} "
+              f"records), launches {n_k}; kernels and plain path identical "
+              f"(outcomes, table, vector); committed "
+              f"{int(ker[2].sum())}, missed {int(ker[3].sum())}; "
+              f"{sec_k * 1e3:.3f} ms with the kernels, {sec_p * 1e3:.3f} "
+              f"plain (host clock) | {smi}")
+        del runs, ker, plain
+    # a 2-stale snapshot against the fresh one from each round's shared
+    # start (the reference's test_staleness_only_adds_aborts)
+    table, state = clone(table0), oracle.init(dev)
+    hist = state.vec.expand(3, T).clone()
+    extra = fresh_commits = 0
+    for r, b in enumerate(batches):
+        stale = si.run_round(
+            clone(table), oracle, clone(state), b, si_compute,
+            rts_vec=tsoracle.staleness_window(hist, 2),
+            fused_commit=True, batched_probe=True)
+        fresh = si.run_round(table, oracle, state, b, si_compute,
+                             fused_commit=True, batched_probe=True)
+        check(not bool((stale.committed & ~fresh.committed).any()),
+              f"run_rounds: the stale snapshot committed a transaction the "
+              f"fresh one aborted in round {r}")
+        extra += int((fresh.committed & ~stale.committed).sum())
+        fresh_commits += int(fresh.committed.sum())
+        mvcc.version_mover(table)
+        hist = torch.cat([state.vec[None], hist[:-1]])
+    check(extra > 0, "the stale snapshot never added an abort")
+    print(f"si.run_round, 2-stale against fresh from each round's shared "
+          f"start: the stale commits a subset in all {SI_ROUNDS} rounds, "
+          f"{extra} extra aborts against {fresh_commits} fresh commits | "
+          f"{smi}")
+    print(f"si.run_rounds phase: {time.perf_counter() - t0:.2f} s | {smi}")
+    return launches
 
 
 # -------------------------------------------------------------- main ----
@@ -2238,10 +2536,14 @@ def main(argv=None):
                          "60 threads each)")
     ap.add_argument("--shard-rounds", type=int, default=8,
                     help="full-mix rounds of phase 10 over the servers")
+    ap.add_argument("--oracle-rounds", type=int, default=32,
+                    help="full-mix rounds of phase 11 (a) under each "
+                         "timestamp oracle")
     ap.add_argument("--lm-reps", type=int, default=20,
                     help="launches timed per LM case of phase 8 (half for "
                          "attention prefill, a quarter for the expert FFN)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2291,6 +2593,7 @@ def main(argv=None):
           f"{st.directory.n_buckets} buckets, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
     st_mix = clone(st)              # the mix starts from the loaded state
+    st_load = clone(st)             # and so do phase 11's runs
 
     def stream(seed):
         return workload.neworder_stream(
@@ -2377,10 +2680,7 @@ def main(argv=None):
             mix_stream(args.seed + 3), args.mix_rounds)
     check(mix_launches["batched_probe"] > 0 and mix_launches["fused_commit"]
           > 0, f"a kernel did not launch on the mix path: {mix_launches}")
-    check([n for n, _, _ in sub_k.log] == [n for n, _, _ in sub_p.log],
-          "the two mix runs ran different sub-rounds")
-    for i, ((n, ok, _), (_, op, _)) in enumerate(zip(sub_k.log, sub_p.log)):
-        same(ok, op, f"mix sub-round {i} ({n}) outcomes")
+    same_logs(sub_k.log, sub_p.log, "mix, kernels against plain")
     same(st_mk, st_mp, "mix final state")
     for f in mstats_k._fields:
         a, b = getattr(mstats_k, f), getattr(mstats_p, f)
@@ -2559,7 +2859,7 @@ def main(argv=None):
     # ---- 10. the sharded store: memory servers on a leading shard axis ----
     del st, st_mix, st_pr, p_args, c_args
     torch.cuda.empty_cache()
-    shard, shard_launches = run_shard_phase(args, dev, smi)
+    shard, shard_launches, st_shard = run_shard_phase(args, dev, smi)
     for key, base, label, n_l in (
             ("batched_probe", "batched_probe", "locate-only",
              shard_launches["batched_probe"]),
@@ -2576,8 +2876,21 @@ def main(argv=None):
         rec.update(extra)
         kernels.append(rec)
 
+    # ---- 11. the timestamp oracles ------------------------------------
+    t0 = time.perf_counter()
+    paths = run_oracle_mix(args, dev, smi, cfg, plain_cfg, lay, st_load)
+    paths.update(run_oracle_shards(args, dev, smi, st_shard))
+    del st_shard
+    paths.update(run_si_rounds(args, dev, smi, cfg.n_threads,
+                               st_load.nam.table))
+    for k in kernels:
+        if k["name"] in ("batched_probe", "fused_commit"):
+            k["launches_by_path"].update(
+                {p: n[k["name"]] for p, n in paths.items()})
+    print(f"oracle phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
-          f" GB")
+          f" GB; {time.perf_counter() - t_start:.2f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,12 @@ leading axes: a journal of one replica a memory server, and the
 per-server snapshot logs of ``store.init_shard_logs`` stacked on a
 leading shard axis, cross as they are.
 
+The oracle state inside a TPC-C state crosses as whichever of the
+oracles' states it is: a ``VectorState``, the naive adapter's
+``NaiveAdapterState`` or a bare ``GlobalCounterState``
+(``oracle_state_from_numpy``, ``oracle_state_to_numpy``), told apart by
+their fields.
+
 ``tensor_from_numpy`` and ``tensor_to_numpy`` carry float arrays (the
 inputs and outputs of the LM kernels) across, bfloat16 included: JAX's
 bfloat16 reaches numpy as an extension dtype named ``bfloat16``, which
@@ -27,13 +33,14 @@ import torch
 from repro_torch._u32 import np_to_i32, np_to_u32
 from repro_torch.core import gc, hashtable as ht, mvcc, rangeindex as ri, \
     store, wal
-from repro_torch.core.tsoracle import VectorState
+from repro_torch.core.tsoracle import GlobalCounterState, \
+    NaiveAdapterState, VectorState
 from repro_torch.db.tpcc import TPCCState
 
 # fields that hold uint32 words in the reference
 U32_FIELDS = frozenset({"cur_hdr", "old_hdr", "ovf_hdr", "vec", "keys",
                         "base_keys", "delta_keys", "ts_vec", "new_hdr",
-                        "vecs"})
+                        "vecs", "cts", "rts", "bitmap", "offset"})
 
 
 def _t(a, device):
@@ -72,7 +79,7 @@ def tpcc_state_from_numpy(tree, device) -> TPCCState:
     return TPCCState(
         nam=store.NAMStore(
             table=_tuple_from(mvcc.VersionedTable, nam.table, device),
-            oracle_state=_tuple_from(VectorState, nam.oracle_state, device),
+            oracle_state=oracle_state_from_numpy(nam.oracle_state, device),
             extends=_tuple_from(store.ExtendState, nam.extends, device)),
         order_index=_tuple_from(ri.RangeIndex, tree.order_index, device),
         hist_cursor=_t(tree.hist_cursor, device),
@@ -90,12 +97,35 @@ def tpcc_state_to_numpy(state: TPCCState) -> TPCCState:
     nam = state.nam
     return TPCCState(
         nam=store.NAMStore(table=_to_np(nam.table),
-                           oracle_state=_to_np(nam.oracle_state),
+                           oracle_state=oracle_state_to_numpy(
+                               nam.oracle_state),
                            extends=_to_np(nam.extends)),
         order_index=_to_np(state.order_index),
         hist_cursor=state.hist_cursor.cpu().numpy(),
         directory=None if state.directory is None
         else _to_np(state.directory))
+
+
+def oracle_state_from_numpy(s, device):
+    """An oracle's state with numpy (or JAX) leaves as the port's: a
+    ``NaiveAdapterState`` when it has a global counter (``gc``), a
+    ``GlobalCounterState`` when it has a bitmap, else a ``VectorState``."""
+    if hasattr(s, "gc"):
+        return NaiveAdapterState(vec=_t(s.vec, device),
+                                 gc=_tuple_from(GlobalCounterState, s.gc,
+                                                device))
+    if hasattr(s, "bitmap"):
+        return _tuple_from(GlobalCounterState, s, device)
+    return _tuple_from(VectorState, s, device)
+
+
+def oracle_state_to_numpy(s):
+    """The port's oracle state with numpy leaves in the reference's
+    dtypes (uint32 words)."""
+    if isinstance(s, NaiveAdapterState):
+        return NaiveAdapterState(vec=np_to_u32(s.vec.cpu().numpy()),
+                                 gc=_to_np(s.gc))
+    return _to_np(s)
 
 
 def journal_from_numpy(j, device) -> wal.Journal:

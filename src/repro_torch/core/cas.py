@@ -81,3 +81,18 @@ def release(hdrs, slots, mask):
     s = s[rows]
     hdrs[s, hdr_ops.META] = hdrs[s, hdr_ops.META] & ~hdr_ops.LOCKED_BIT
     return hdrs
+
+
+def all_granted_per_txn(granted, txn_of_request, n_txn: int, request_active):
+    """Fold per-record grants into per-transaction commit decisions (bool
+    [n_txn]): a transaction commits iff every active write request it
+    issued was granted (Listing 1: ``commit = commit && success[i]``), and
+    one with no active request always commits. A transaction id out of
+    range once negatives wrap is dropped, as the reference's scatter-add
+    drops it."""
+    idx = sidx(txn_of_request, n_txn)
+    counts = torch.zeros((2, n_txn + 1), dtype=torch.int32,
+                         device=granted.device)     # row n_txn is a sink
+    counts[0].index_add_(0, idx, (request_active & ~granted).to(torch.int32))
+    counts[1].index_add_(0, idx, request_active.to(torch.int32))
+    return (counts[0, :n_txn] == 0) | (counts[1, :n_txn] == 0)

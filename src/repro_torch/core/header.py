@@ -51,6 +51,14 @@ def commit_ts(hdr):
     return hdr[..., CTS]
 
 
+def key64(hdr):
+    """A sortable scalar view of the header, its commit timestamp as an
+    unsigned value (int64). It orders the versions of one thread, whose
+    timestamps are totally ordered; versions of different threads are
+    ordered only by visibility."""
+    return u64(hdr[..., CTS])
+
+
 def is_locked(hdr):
     return (hdr[..., META] & LOCKED_BIT) != 0
 

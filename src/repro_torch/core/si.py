@@ -282,7 +282,11 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
 
     # ---- 4. commit timestamps, created locally ----------------------------
     slot = oracle.slot_of_thread(batch.tid)
-    cts = to_i32(u64(state.vec[gidx(slot, state.vec.shape[0])]) + 1)
+    txn_ok = txn_found & active
+    if hasattr(oracle, "next_commit_ts_batch"):
+        cts = oracle.next_commit_ts_batch(state, batch.tid, txn_ok)
+    else:
+        cts = to_i32(u64(state.vec[gidx(slot, state.vec.shape[0])]) + 1)
     new_hdr = hdr_ops.pack(slot[:, None].expand(T, WS),
                            cts[:, None].expand(T, WS))
 
@@ -290,7 +294,6 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
     wref = batch.write_ref.clamp(0, RS - 1).to(torch.int64)
     write_slots = read_slots.gather(1, wref)
     expected = read_hdr.gather(1, wref[:, :, None].expand(T, WS, 2))
-    txn_ok = txn_found & active
     req_active = (batch.write_mask & txn_ok[:, None]).reshape(-1)
     req_slots = write_slots.reshape(-1)
     req_expected = expected.reshape(-1, 2)
@@ -310,14 +313,20 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
 
     # ---- 5./7./8./9. validate+lock, install, release, make visible --------
     if fused_commit:
+        # the kernel's in-launch scatter-max is the make-visible of the
+        # vector oracles alone: any other oracle's make-visible runs
+        # itself, and the kernel writes a scratch copy of the vector
+        std_vis = type(oracle).make_visible is VectorOracle.make_visible
         from repro_torch.kernels.commit import ops as commit_ops
         fc = commit_ops.fused_commit(
-            table, state.vec, req_slots, req_expected, req_prio, req_active,
-            txn_of_req, new_hdr.reshape(-1, 2), new_data.reshape(-1, W),
-            txn_ok, slot, cts, torch.zeros((T,), dtype=torch.int32,
-                                           device=dev))
+            table, state.vec if std_vis else state.vec.clone(), req_slots,
+            req_expected, req_prio, req_active, txn_of_req,
+            new_hdr.reshape(-1, 2), new_data.reshape(-1, W), txn_ok, slot,
+            cts, torch.zeros((T,), dtype=torch.int32, device=dev))
         committed, do_install = fc.committed, fc.do_install
         release_mask = fc.granted & ~committed[txn_of_req.to(torch.int64)]
+        if not std_vis:
+            oracle.make_visible(state, batch.tid, cts, committed)
     else:
         co = commit_write_sets(table, req_slots, req_expected, req_prio,
                                req_active, txn_of_req,
@@ -341,3 +350,31 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
     return RoundResult(table=table, oracle_state=state, committed=committed,
                        snapshot_miss=~txn_found, read_data=read_data, ops=ops,
                        vis=vis, journal=journal)
+
+
+def run_rounds(table: VersionedTable, oracle, state, make_batch: Callable,
+               compute_fn: ComputeFn, n_rounds: int, *, staleness: int = 0,
+               fused_commit: bool = False, batched_probe: bool = False):
+    """Driver: ``n_rounds`` rounds of :func:`run_round` over
+    ``make_batch(round) -> TxnBatch``.
+
+    ``staleness > 0`` emulates the §4.2 dedicated fetch thread: each round
+    reads the vector made visible ``staleness`` rounds earlier (a ring of
+    the last ``staleness + 1`` vectors, all the starting vector at first).
+    The kernel flags are :func:`run_round`'s. Returns ``(table, state,
+    committed bool [n_rounds, T], missed bool [n_rounds, T])``; the table
+    and the oracle state are updated in place.
+    """
+    hist = state.vec.expand((max(1, staleness + 1),) + state.vec.shape) \
+        .clone()
+    committed, missed = [], []
+    for r in range(n_rounds):
+        out = run_round(table, oracle, state, make_batch(r), compute_fn,
+                        rts_vec=hist[-1] if staleness > 0 else None,
+                        fused_commit=fused_commit,
+                        batched_probe=batched_probe)
+        hist = torch.cat([out.oracle_state.vec[None], hist[:-1]])
+        committed.append(out.committed)
+        missed.append(out.snapshot_miss)
+        table, state = out.table, out.oracle_state
+    return table, state, torch.stack(committed), torch.stack(missed)

@@ -346,6 +346,11 @@ def distributed_round(n_shards: int, oracle: VectorOracle,
     journal])``; ``table``, ``vec`` and ``journal`` are updated in place.
     ``active`` (bool [T]) marks the threads running a transaction.
     """
+    if not isinstance(oracle, VectorOracle):
+        raise ValueError(
+            f"distributed_round needs a vector oracle, whose state is the "
+            f"vector alone (a VectorState): {type(oracle).__name__} keeps "
+            f"more state than the servers carry")
     if n_dir_buckets and n_dir_buckets % n_shards:
         raise ValueError(f"n_dir_buckets ({n_dir_buckets}) must divide over "
                          f"{n_shards} memory servers")
@@ -398,7 +403,12 @@ def distributed_round(n_shards: int, oracle: VectorOracle,
 
         # ---- 4. commit timestamps, created locally ----------------------
         slot_ids = oracle.slot_of_thread(batch.tid)
-        cts = to_i32(u64(snap[gidx(slot_ids, snap.shape[0])]) + 1)
+        txn_ok = txn_found & active
+        if hasattr(oracle, "next_commit_ts_batch"):
+            cts = oracle.next_commit_ts_batch(VectorState(vec=snap),
+                                              batch.tid, txn_ok)
+        else:
+            cts = to_i32(u64(snap[gidx(slot_ids, snap.shape[0])]) + 1)
         new_hdr = hdr_ops.pack(slot_ids[:, None].expand(T, WS),
                                cts[:, None].expand(T, WS))
 
@@ -406,7 +416,6 @@ def distributed_round(n_shards: int, oracle: VectorOracle,
         wref = batch.write_ref.clamp(0, RS - 1).to(torch.int64)
         wslots = read_slots.gather(1, wref)
         expected = read_hdr.gather(1, wref[:, :, None].expand(T, WS, 2))
-        txn_ok = txn_found & active
         req_active = (batch.write_mask & txn_ok[:, None]).reshape(-1)
         txn_of_req = torch.arange(T, dtype=torch.int32,
                                   device=dev)[:, None].expand(T, WS) \
@@ -425,8 +434,12 @@ def distributed_round(n_shards: int, oracle: VectorOracle,
                 round_no=round_no, seq=seq)
 
         # ---- 5.-8. validate + lock, decide, install, release ------------
+        # the commit kernel's scatter-max is the vector oracle's
+        # make-visible; another oracle's kernel writes a scratch copy
+        std_vis = type(oracle).make_visible is VectorOracle.make_visible
         committed, granted, do_install = commit_on_servers(
-            table, live, S, wslots.reshape(-1), expected.reshape(-1, 2),
+            table, live if std_vis else live.clone(), S, wslots.reshape(-1),
+            expected.reshape(-1, 2),
             batch.tid[:, None].expand(T, WS).reshape(-1), req_active,
             txn_of_req, new_hdr.reshape(-1, 2), new_data.reshape(-1, W),
             txn_ok, slot_ids, cts, fused_commit=fused_commit)
@@ -435,7 +448,7 @@ def distributed_round(n_shards: int, oracle: VectorOracle,
         # ---- 9. make visible --------------------------------------------
         if journal is not None:   # the outcome after the decision (§3.2)
             wal.append_outcome(journal, batch.tid, committed)
-        if not fused_commit:
+        if not (fused_commit and std_vis):
             oracle.make_visible(VectorState(vec=live), batch.tid, cts,
                                 committed)
 

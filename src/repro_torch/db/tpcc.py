@@ -630,7 +630,8 @@ def distribute_state(engine: DistEngine, st: TPCCState) -> TPCCState:
     if directory is not None and engine.n_dir_buckets:
         directory = store.shard_directory(engine.n_shards, directory)
     return st._replace(nam=st.nam._replace(
-        table=tbl, oracle_state=VectorState(vec=vec)), directory=directory)
+        table=tbl, oracle_state=st.nam.oracle_state._replace(vec=vec)),
+        directory=directory)
 
 
 class MixedEngine(NamedTuple):
@@ -725,7 +726,8 @@ def neworder_round_distributed(cfg: TPCCConfig, lay: TPCCLayout,
     tbl, idx, extends, o_id = _neworder_inserts(
         cfg, lay, st, oracle, tbl, vec, out.committed, out.read_data, inp,
         round_no, journal=journal)
-    nam = st.nam._replace(table=tbl, oracle_state=VectorState(vec=vec),
+    nam = st.nam._replace(table=tbl,
+                          oracle_state=st.nam.oracle_state._replace(vec=vec),
                           extends=extends)
     return NewOrderResult(
         state=st._replace(nam=nam, order_index=idx),
@@ -999,7 +1001,8 @@ def payment_round_distributed(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     tbl, hist_cursor = _payment_insert(cfg, lay, st, oracle, tbl, vec,
                                        out.committed, inp, round_no=round_no,
                                        journal=journal)
-    nam = st.nam._replace(table=tbl, oracle_state=VectorState(vec=vec))
+    nam = st.nam._replace(
+        table=tbl, oracle_state=st.nam.oracle_state._replace(vec=vec))
     return PaymentResult(
         state=st._replace(nam=nam, hist_cursor=hist_cursor),
         committed=out.committed, ops=ops, batch=batch,
@@ -1356,7 +1359,8 @@ def delivery_round_distributed(cfg: TPCCConfig, lay: TPCCLayout,
         **_journal_kw(journal, round_no, _JSEQ_DELIVERY))[:3]
     ops = _delivery_preread_ops(_dist_ops(oracle, batch, out, tbl, active),
                                 _n_active(batch, active), tbl.payload_width)
-    nam = st.nam._replace(table=tbl, oracle_state=VectorState(vec=nvec))
+    nam = st.nam._replace(
+        table=tbl, oracle_state=st.nam.oracle_state._replace(vec=nvec))
     return DeliveryResult(
         state=st._replace(nam=nam), committed=out.committed,
         delivered=out.committed & found, ops=ops, batch=batch,
@@ -1428,6 +1432,17 @@ def _inflight_intents(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         round_no=round_no, seq=_JSEQ_NEWORDER)
 
 
+def _check_recoverable(st: TPCCState):
+    """Recovery rebuilds the vector alone (from the checkpoint and the
+    commit records), so the oracle's state must be the vector alone."""
+    if not isinstance(st.nam.oracle_state, VectorState):
+        raise ValueError(
+            f"§6.2 recovery rebuilds a VectorState, not the "
+            f"{type(st.nam.oracle_state).__name__} of this oracle (the "
+            f"naive adapter's global counter and ctsList are not in the "
+            f"checkpoint or the journal)")
+
+
 def recover_from_failure(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
                          engine, jnl: wal.Journal, checkpoint_dir: str,
                          failure: FailureInjector, *, use_gc: bool,
@@ -1445,6 +1460,7 @@ def recover_from_failure(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     is one server, whose whole pool is rebuilt. Returns ``(state,
     RecoveryReport)``; the state holds the rebuilt vector (and, on one
     server, the restored table)."""
+    _check_recoverable(st)
     t0 = time.perf_counter()
     dead = failure.dead_server
     n_rep = jnl.n_replicas
@@ -1582,7 +1598,8 @@ def scale_out(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
         directory=st.directory if engine.n_dir_buckets else None,
         journal=jnl, gc_logs=gc_log)
     st = st._replace(
-        nam=st.nam._replace(table=tbl, oracle_state=VectorState(vec=vec)),
+        nam=st.nam._replace(
+            table=tbl, oracle_state=st.nam.oracle_state._replace(vec=vec)),
         directory=directory if directory is not None else st.directory)
     snapshot.save(checkpoint_dir, _mem_state(st, jnl),
                   extra={"round": growth.grow_round - 1, "n_shards": new_n})
@@ -1708,10 +1725,12 @@ def run_mixed_rounds(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     gc_log = _gc_init(oracle, engine, gc_interval, gc_snapshots, dev)
     reclaim_traj, recovery, growth_reports = [], [], []
     jnl = journal
-    if failure is not None and (jnl is None or checkpoint_dir is None):
-        raise ValueError("failure injection needs a journal and a "
-                         "checkpoint_dir: §6.2 recovery replays the "
-                         "surviving journals onto the last checkpoint")
+    if failure is not None:
+        if jnl is None or checkpoint_dir is None:
+            raise ValueError("failure injection needs a journal and a "
+                             "checkpoint_dir: §6.2 recovery replays the "
+                             "surviving journals onto the last checkpoint")
+        _check_recoverable(st)
     if jnl is not None and engine is not None and not engine.with_journal:
         raise ValueError("journaling through the mesh needs an engine "
                          "built with with_journal=True")

@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from repro_torch._u32 import np_to_i32
-from repro_torch.core import hashtable as tht, mvcc as tmvcc, store
+from repro_torch.core import cas as tcas, header as theader, \
+    hashtable as tht, mvcc as tmvcc, si as tsi, store
+from repro_torch.core import tsoracle as tts
 from repro_torch.core.tsoracle import PartitionedVectorOracle, VectorOracle
 from repro_torch.db import tpcc, workload
 from repro_torch.kernels.commit import ops as commit_ops
@@ -1400,3 +1402,177 @@ def test_lm_wrappers_raise_on_bad_cuda_inputs():
                      for a in moe_inputs(1, 8, 16, 8))
     with pytest.raises(ValueError):
         moe_ops.moe_gmm(x, wg.bfloat16(), wi, wo)
+
+
+# ------------------------------------------------- the timestamp oracles ----
+def shared_slot_commit_case(seed, near_wrap):
+    """``commit_many_case`` cut to 60 transactions of 16 requests whose
+    make-visible shares ONE vector slot (one compute server of 60 threads,
+    the compressed oracle's): distinct commit timestamps above the slot,
+    some past 2^31 or wrapping past 2^32 with ``near_wrap``, so the
+    kernel's atomic max must compare them as unsigned words."""
+    tbl, args = commit_many_case(seed, R=1 << 14, T=60, WS=16)
+    rng = np.random.RandomState(seed + 100)
+    base = np.uint32(0xFFFFFFE0 if near_wrap else 1000)
+    vec = np.array([base], np.uint32)
+    cts = (base + np.uint32(1) + rng.permutation(60).astype(np.uint32))
+    txn_slot = np.zeros(60, np.int32)
+    new_hdr = args[6].copy()
+    new_hdr[:, 1] = np.repeat(cts, 16)
+    new_hdr[:, 0] = 0
+    return tbl, (vec,) + args[1:6] + (new_hdr,) + args[7:9] + (
+        txn_slot, cts, args[11])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("near_wrap", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_commit_shared_vector_slot_on_card(seed, near_wrap):
+    """60 lanes of transactions share one make-visible slot: the kernel's
+    in-launch scatter-max equals the plain twin's, vector included."""
+    dev = _cuda()
+    case = shared_slot_commit_case(seed, near_wrap)
+    ker = port_commit(commit_ops.fused_commit, case, dev)
+    torch.cuda.synchronize()
+    plain = port_commit(fused_commit_ref, case)
+    _assert_leaves_equal(plain, ker, COMMIT_OUT)
+    committed = plain[10].numpy()
+    assert committed.sum() > 1      # several committers share the slot
+    assert np_to_i32(np.array([max(case[1][10][committed])],
+                              np.uint32))[0] == int(plain[8][0])
+
+
+def si_batch(rng, n_records, T, rs, ws):
+    """``tests/_si_common.gen_batch`` in numpy and torch: distinct read
+    slots a transaction, write refs into its own read set, every written
+    ref a masked read."""
+    slots = np.stack([rng.choice(n_records, size=rs, replace=False)
+                      for _ in range(T)])
+    read_mask = rng.random((T, rs)) < 0.9
+    wref = np.stack([rng.choice(rs, size=ws, replace=False)
+                     for _ in range(T)])
+    write_mask = rng.random((T, ws)) < 0.7
+    for t in range(T):
+        read_mask[t, wref[t][write_mask[t]]] = True
+    return tsi.TxnBatch(
+        tid=torch.arange(T, dtype=torch.int32),
+        read_slots=torch.from_numpy(slots.astype(np.int32)),
+        read_mask=torch.from_numpy(read_mask),
+        write_ref=torch.from_numpy(wref.astype(np.int32)),
+        write_mask=torch.from_numpy(write_mask))
+
+
+def si_compute(batch):
+    def fn(rh, rd, vec):
+        wref = batch.write_ref.clamp(0, rd.shape[1] - 1).long()
+        base = rd.gather(1, wref[:, :, None].expand(-1, -1, rd.shape[2]))
+        return base + (batch.tid + 1)[:, None, None]
+    return fn
+
+
+SI_ORACLES = {
+    "naive": lambda: tts.NaiveOracleAdapter(60, capacity=256),
+    "compressed_one_slot": lambda: tts.CompressedVectorOracle(60, 60),
+    "compressed_x15": lambda: tts.CompressedVectorOracle(60, 15),
+    "vector": lambda: VectorOracle(60),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SI_ORACLES))
+def test_oracle_rounds_kernels_match_plain_path_on_card(name):
+    """Six ``si.run_round`` rounds of 60 threads through both kernels on
+    the card equal the plain path on the CPU: outcomes, the table and the
+    whole oracle state. The naive adapter's kernel call writes a scratch
+    vector (its own make-visible runs after it), so its ``state.vec`` is
+    the plain round's; the one-slot compressed oracle's 60 threads share
+    the kernel's make-visible slot (the capacity of 256 stalls the naive
+    adapter's read timestamp in the fifth round)."""
+    dev = _cuda()
+    oracle = SI_ORACLES[name]()
+    rng = np.random.default_rng(4)
+    cpu_tab = tmvcc.init_table(512, 4, n_old=4, n_overflow=4, device="cpu")
+    tab = _copy(cpu_tab, dev)
+    cpu_state = oracle.init(device="cpu")
+    state = _copy(cpu_state, dev)
+    for r in range(6):
+        b = si_batch(rng, 512, 60, 8, 4)
+        n = (probe_ops.batched_probe.launches,
+             commit_ops.fused_commit.launches)
+        out = tsi.run_round(tab, oracle, state, _to(b, dev),
+                            si_compute(_to(b, dev)), fused_commit=True,
+                            batched_probe=True)
+        assert (probe_ops.batched_probe.launches - n[0],
+                commit_ops.fused_commit.launches - n[1]) == (1, 1)
+        ref = tsi.run_round(cpu_tab, oracle, cpu_state, b, si_compute(b))
+        for f in ("committed", "snapshot_miss", "read_data"):
+            assert torch.equal(getattr(out, f).cpu(), getattr(ref, f)), \
+                (r, f)
+        _assert_leaves_equal(_leaves(ref.oracle_state),
+                             _leaves(out.oracle_state),
+                             [f"round {r} oracle state"] * 8)
+        tmvcc.version_mover(tab)
+        tmvcc.version_mover(cpu_tab)
+    _assert_leaves_equal(_leaves(cpu_tab), _leaves(tab),
+                         tmvcc.VersionedTable._fields)
+
+
+def _copy(x, device):
+    """A copy of a tensor or a (nested) tuple of them on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    return type(x)(*(_copy(y, device) for y in x))
+
+
+@pytest.mark.gpu
+def test_oracle_functions_on_card_match_cpu():
+    """Every new oracle function on CUDA tensors equals the same call on
+    the CPU, on the wrap cases of ``tests/test_torch_oracle.py`` (states
+    updated in place: each side gets its own copy)."""
+    dev = _cuda()
+    rng = np.random.RandomState(8)
+
+    def both(label, fn, *xs):
+        a = fn(*(_copy(x, "cpu") for x in xs))
+        b = fn(*(_copy(x, dev) for x in xs))
+        _assert_leaves_equal(_leaves(a), _leaves(b), [label] * 8)
+
+    g = tts.GlobalCounterOracle(64)
+    bitmap = (rng.rand(64) < 0.7).astype(np.uint32)
+    bitmap[:10] = 1
+    gs = tts.GlobalCounterState(
+        _t(np.array([0xFFFFFFFB], np.uint32)), _t(np.array([9], np.uint32)),
+        _t(bitmap), _t(np.array([0xFFFFFFF4], np.uint32)))
+    cts = _t(np.array([0xFFFFFFFC, 0xFFFFFFFF, 0, 3, 70, 5, 200, 0x80000000],
+                      np.uint32))
+    both("fetch_commit_ts", lambda s: g.fetch_commit_ts(s, 8), gs)
+    both("complete", g.complete, gs, cts)
+    both("advance", g.advance, gs)
+    both("read", g.read, gs)
+    c = tts.CompressedVectorOracle(10, 4)
+    vs = tts.VectorState(_t(np.array([0xFFFFFFFF, 7], np.uint32)))
+    tids = torch.tensor([0, 3, 8, 9, 12, -1, -9, 5], dtype=torch.int32)
+    want = torch.from_numpy(rng.rand(8) < 0.6)
+    both("next_commit_ts_batch", c.next_commit_ts_batch, vs, tids, want)
+    both("next_commit_ts_batch, none want", c.next_commit_ts_batch, vs, tids,
+         torch.zeros(8, dtype=torch.bool))
+    both("next_commit_ts", c.next_commit_ts, vs, tids)
+    both("make_visible", c.make_visible, vs, tids, cts, want)
+    nv = tts.NaiveOracleAdapter(16, capacity=32)
+    ns = nv.init(device="cpu")
+    ns.gc.cts.fill_(-20)
+    t16 = torch.arange(16, dtype=torch.int32)
+    both("naive next_commit_ts_batch", nv.next_commit_ts_batch, ns, t16,
+         torch.ones(16, dtype=torch.bool))
+    both("naive make_visible", nv.make_visible, ns, t16, t16 * 7 - 30)
+    hist = _t(rng.randint(0, 1 << 32, (3, 4)).astype(np.uint32))
+    both("staleness_window", lambda h: tts.staleness_window(h, 2), hist)
+    assert tts.snapshot_summary(hist.to(dev)) == tts.snapshot_summary(hist)
+    granted = torch.from_numpy(rng.rand(40) < 0.7)
+    active = torch.from_numpy(rng.rand(40) < 0.8)
+    txn = torch.from_numpy(rng.randint(-2, 8, 40).astype(np.int32))
+    both("all_granted_per_txn",
+         lambda g_, t, a: tcas.all_granted_per_txn(g_, t, 6, a),
+         granted, txn, active)
+    both("key64", theader.key64,
+         _t(rng.randint(0, 1 << 32, (5, 2)).astype(np.uint32)))
