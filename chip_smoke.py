@@ -6,6 +6,7 @@ against their plain PyTorch versions.
                           [--seed 0] [--profile-rounds 4] [--lm-reps 20]
                           [--durable-rounds 8] [--shards 4]
                           [--shard-rounds 8] [--oracle-rounds 32]
+                          (phase 12, the LM serve path, takes --seed)
 
 Phases, each fatal on failure:
 
@@ -151,7 +152,43 @@ Phases, each fatal on failure:
    records, 4 writes inside them) with ``staleness`` 0 and 2, the kernel
    path against the plain path bit for bit; and from each round's shared
    start a 2-stale snapshot must commit a subset of what the fresh one
-   commits, with some extra abort.
+   commits, with some extra abort;
+12. the LM serve path (``serve.engine.Engine`` over ``models``): random
+   bf16 weights from ``--seed`` at full width, depth cut (mixtral-8x22b,
+   8 of 56 layers, 40.5 GB; gemma2-27b, 4 of 46, two local/global
+   units), ``examples/serve_lm.py``'s traffic (``EngineConfig(8, 16,
+   1024, 4352)``, 12 requests of ``make_prompts`` at 32-1,024 tokens, the
+   ninth replaced by one of 4,100, admitted in two waves of at most 8,
+   ``max_new`` 16, stragglers forced done and released). The kernel engine
+   and the plain engine run in lockstep, the plain engine's tokens and
+   ``done`` copied into the kernel engine after every admission and step:
+   the integer state (page headers, refcounts, page table, lengths,
+   flags, epoch) must be bit-identical throughout; the first layer's K/V
+   bit-identical and every layer's within a relative RMS difference of
+   0.05; each admission's and step's logits within a relative RMS
+   difference of 0.05; greedy tokens equal wherever the plain path's
+   top-1/top-2 margin exceeds 4x the position's max |logit difference|
+   (every prompt position and every decode row; at least one such
+   position a request). A token whose MoE dispatch differs between the
+   paths (another expert, or the other side of a capacity) is counted and
+   its row and K/V are left out of the RMS checks; at the first layer at
+   which it differs the plain router must nearly tie (margin at most
+   0.01, 0.05 after an earlier token of its row differed at a lower
+   layer) or its rank lie within 64 of the capacity's edge, at most 0.4
+   of an admission's tokens and 0.75 of a step's lanes may differ, and
+   at least one row of logits must not. The first and the last call of
+   each kernel in every admission and step must match its plain version
+   (``tolerance``);
+   ``flash_attention`` must launch once a layer an admission,
+   ``paged_attention`` once a layer a step with a lane in its contract
+   (the other lanes, checked against the contract from the table, go
+   through the plain sub-batch and must give the plain engine's rows at
+   the first layer), ``moe_gmm`` once a MoE layer an admission and a step.
+   Both paths then run the traffic alone, timed: prefill ms a wave, the
+   median decode step, decoded tokens/s, and over a profiled admission and
+   4 profiled steps the host syncs a step, the idle share and each
+   kernel's device time a call beside the mean bound of the same calls
+   (recorded in a replay of that admission and those steps).
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -172,6 +209,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -201,6 +239,12 @@ from repro_torch.kernels.moe_gmm import ref as moe_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as paged_ref  # noqa: E402
 from repro_torch.kernels import tolerance  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.data.pipeline import make_prompts  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the FP32 rate
 # outside the tensor cores, taken as the rate of 32-bit integer work
@@ -1445,20 +1489,21 @@ def run_lm_phase(dev, seed, reps):
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
 
-def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
-    """Device time by kernel over ``n_rounds`` rounds of ``driver``, the
-    idle share, and the host's waits: the device-side events of the trace
-    (kernels, copies, fills), which run one at a time on the one stream,
-    summed by name, and the counts of ``SYNC_CALLS`` runtime calls and of
+def profiled(fn):
+    """Run ``fn()`` under the profiler between two synchronisations;
+    returns the wall time and the trace's device time by kernel, the idle
+    share's inputs and the host's waits: the device-side events (kernels,
+    copies, fills), which run one at a time on the one stream, summed by
+    name, and the counts of ``SYNC_CALLS`` runtime calls and of
     device-to-host copies (the two ``torch.cuda.synchronize`` calls around
-    the rounds excluded)."""
+    ``fn`` excluded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        driver(cfg, lay, st, oracle, stream, n_rounds, device="cuda")
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -1474,6 +1519,12 @@ def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
                   key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     return wall_us, busy_us, rows, syncs
+
+
+def profile_rounds(driver, cfg, lay, st, oracle, stream, n_rounds):
+    """:func:`profiled` over ``n_rounds`` rounds of ``driver``."""
+    return profiled(lambda: driver(cfg, lay, st, oracle, stream, n_rounds,
+                                   device="cuda"))
 
 
 # the port's protocol kernels as the trace names them
@@ -2517,6 +2568,712 @@ def run_si_rounds(args, dev, smi, T, table0):
     return launches
 
 
+# ---------------------------------------------------- the serve path ----
+# examples/serve_lm.py's traffic at full width: 8 slots, pages of 16 tokens
+# (serve/engine.py:34), a pool of 1,024 pages, room for 4,352 tokens a
+# sequence (the 4,100-token prompt and its new tokens), EOS token 1
+SERVE_ECFG = serve_engine.EngineConfig(max_seqs=8, page_size=16,
+                                       n_pages=1024, max_len=4352, eos=1)
+SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_LONG = 12, 16, 4100
+# (config, layers): the depth cut to what one card holds beside two
+# engines' pools and the checks' float32 copies: 8 mixtral layers are
+# 40.5 GB of bf16 weights (56 would be 281 GB); 4 gemma2 layers are two
+# units of its local/global pair
+SERVE_CONFIGS = (("mixtral-8x22b", 8), ("gemma2-27b", 4))
+# the kernel path's logits of an admission or a decode step, and each
+# layer's K/V, against the plain path's: the relative RMS of their
+# difference at most this, over the rows and positions whose token's MoE
+# dispatch was the plain path's
+SERVE_LOGIT_RRMS = 0.05
+# a token whose MoE dispatch differs between the two paths must first
+# differ where the plain path nearly ties: at that layer, the plain
+# router's probability of the expert it chose minus that of the expert the
+# kernel path chose in the same place at most SERVE_ROUTER_TIE; where the
+# token's choices agree and only its side of a capacity differs, its plain
+# rank at most SERVE_EDGE_RANKS from the capacity's edge (0: the last kept
+# or the first dropped). A token whose row held an earlier token that
+# differed at a lower layer (its attention inputs already differ by whole
+# expert outputs) is held to SERVE_ROUTER_TIE_AFTER instead. At most
+# SERVE_DIVERTED_ADMIT of an admission's prompt tokens and
+# SERVE_DIVERTED_STEP of a step's live lanes may differ, and at least one
+# row of logits must not. The limits are about twice the largest seen on
+# the card (mixtral-8x22b: margins 0.00505 and 0.0252, 26 ranks from the
+# edge of a capacity of 2,560, shares 0.250 and 0.75; PERF.md §6).
+SERVE_ROUTER_TIE = 0.01
+SERVE_ROUTER_TIE_AFTER = 0.05
+SERVE_EDGE_RANKS = 64
+SERVE_DIVERTED_ADMIT = 0.4
+SERVE_DIVERTED_STEP = 0.75
+# greedy tokens must agree where the plain path's top-1/top-2 margin
+# exceeds this many times the position's max |logit difference|
+SERVE_MARGIN = 4.0
+SERVE_KERNELS = ("flash_attention", "paged_attention", "moe_gmm")
+# each serve kernel's functions as the trace names them
+SERVE_TRACE = {"flash_attention": "flash_", "paged_attention": "paged_",
+               "moe_gmm": "gmm_"}
+SERVE_PROFILE_STEPS = 4
+
+
+def serve_prompts(seed, vocab):
+    """``make_prompts(seed)``'s 12 prompts of 32-1,024 tokens, the ninth
+    (the first of wave 2) replaced by one of 4,100, past the 4,096 window
+    and past the 64 pages (1,024 tokens) one admission maps a sequence
+    (``kvcache.MAX_PAGES_PER_ALLOC``)."""
+    prompts = make_prompts(seed, SERVE_REQUESTS, vocab, min_len=32,
+                           max_len=1024)
+    prompts[SERVE_ECFG.max_seqs] = make_prompts(seed + 1, 1, vocab,
+                                                SERVE_LONG, SERVE_LONG)[0]
+    return prompts
+
+
+def waves(prompts):
+    """``(request ids, prompts)`` of each admission, ``max_seqs`` at a time
+    (``examples/serve_lm.py``)."""
+    n = SERVE_ECFG.max_seqs
+    return [(list(range(i, min(i + n, len(prompts)))), prompts[i:i + n])
+            for i in range(0, len(prompts), n)]
+
+
+class ServeShadow:
+    """While active, records the first and the last call of each serve
+    kernel's wrapper in the current step of the kernel engine (``tag``
+    "k"); the first ``decode_attention`` of the current step of either
+    engine (``tag`` "k" or "p"): the kernel engine's plain sub-batch and
+    the plain engine's whole batch, both at the first layer; and every
+    MoE layer's router probabilities and expert choices
+    (``moe.top_k_choices``) and the prefill's final hidden states
+    (``forward_hidden``) of either engine."""
+
+    SITES = ((flash_ops, "flash_attention"), (paged_ops, "paged_attention"),
+             (moe_ops, "moe_gmm"), (model_common, "decode_attention"),
+             (moe_mod, "top_k_choices"), (serve_engine, "forward_hidden"))
+
+    def __init__(self):
+        self.tag = None
+        self.calls = {}          # kernel -> [first, last] (args, kw, out)
+        self.first_plain = {}    # tag -> first decode_attention output
+        self.routes = {"k": [], "p": []}   # tag -> (probs, ids) a MoE layer
+        self.hidden = {}         # tag -> the prefill's final hidden states
+
+    def __enter__(self):
+        self.orig = {n: getattr(m, n) for m, n in self.SITES}
+        for m, n in self.SITES:
+            setattr(m, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n in self.SITES:
+            setattr(m, n, self.orig[n])
+
+    def step(self, tag):
+        self.tag = tag
+        self.first_plain.pop(tag, None)
+        self.routes[tag] = []
+        if tag == "k":
+            self.calls = {}
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if self.tag is None:
+                return out
+            if name == "decode_attention":
+                self.first_plain.setdefault(self.tag, out)
+            elif name == "top_k_choices":
+                self.routes[self.tag].append((args[0], out[1]))
+            elif name == "forward_hidden":
+                self.hidden[self.tag] = out[0]
+            elif self.tag == "k":
+                rec = (args, kw, out)
+                self.calls.setdefault(name, [rec, rec])[1] = rec
+            return out
+        return call
+
+
+def dispatch_rank(idx, capacity_factor, E):
+    """The rank [T, k] of each choice inside its expert and the capacity
+    ``C`` of ``moe.apply_moe`` for expert ids ``idx`` [T, k]: a choice is
+    kept where its rank is below ``C``."""
+    T, k = idx.shape
+    C = max(1, int(capacity_factor * T * k / E))
+    onehot = torch.nn.functional.one_hot(idx.reshape(-1), E)
+    rank = (onehot.cumsum(0) - onehot).gather(1, idx.reshape(-1, 1))
+    return rank.reshape(T, k), C
+
+
+def dispatch_firsts(cfg, shadow, capacity_factor, rows, prior, held,
+                    share_limit, res, what):
+    """Each token's first MoE layer at which its dispatch differs between
+    the two engines (another expert, or another side of a capacity), host
+    int [rows, T // rows], ``n_layers`` where none. ``prior`` host int
+    [rows]: the lowest first layer among each row's tokens already in the
+    pool; ``held`` host bool [rows, T // rows]: the tokens gated (prompt
+    positions, live lanes). Each held token's first difference is held to
+    ``SERVE_ROUTER_TIE`` (``SERVE_ROUTER_TIE_AFTER`` where an earlier token
+    of its row differed at a lower layer) or ``SERVE_EDGE_RANKS``, and
+    their share to ``share_limit``."""
+    rk, rp = shadow.routes["k"], shadow.routes["p"]
+    check(len(rk) == len(rp), f"{what}: MoE layers {len(rk)} != {len(rp)}")
+    per = []                      # per layer: differs, chose, margin, edge
+    for (_, a), (probs, b) in zip(rk, rp):
+        ra, C = dispatch_rank(a, capacity_factor, cfg.n_experts)
+        rb, _ = dispatch_rank(b, capacity_factor, cfg.n_experts)
+        chose = a != b
+        side = (ra < C) != (rb < C)
+        j = chose.int().argmax(dim=1, keepdim=True)
+        margin = probs.gather(1, b.gather(1, j)) - probs.gather(
+            1, a.gather(1, j))
+        edge = torch.where(rb >= C, rb - C, C - 1 - rb)
+        edge = torch.where(side, edge, -1).amax(dim=1)
+        gap = probs.topk(cfg.top_k + 1, dim=1).values
+        per.append(torch.stack([
+            (chose.any(dim=1) | side.any(dim=1)).float(),
+            chose.any(dim=1).float(), margin[:, 0], edge.float(),
+            gap[:, -2] - gap[:, -1]]))
+    L = len(per)
+    d, chose, margin, edge, gap = torch.stack(per, dim=1).cpu().numpy()
+    T = d.shape[1]
+    first = np.where(d.any(axis=0), d.argmax(axis=0), L).reshape(rows, -1)
+    # the lowest first layer of each token's earlier tokens in its row
+    before = np.minimum.accumulate(
+        np.concatenate([prior[:, None], first[:, :-1]], axis=1), axis=1)
+    after = (before < first).reshape(-1)
+    f = first.reshape(-1)
+    on = held.reshape(-1) & (f < L)
+    t = np.flatnonzero(on)
+    at = f[t]
+    flip = chose[at, t] > 0
+    m, e = margin[at, t], edge[at, t]
+    for key, pick in (("tie", flip & ~after[t]), ("tie_after", flip
+                                                   & after[t])):
+        if pick.any():
+            res[key] = max(res[key], float(m[pick].max()))
+        res[f"{key}_n"] += int(pick.sum())
+    if (~flip).any():
+        res["edge"] = max(res["edge"], int(e[~flip].max()))
+    res["edge_n"] += int((~flip).sum())
+    hg = gap[:, held.reshape(-1)]
+    res["gaps"] += hg.size
+    res["gaps_under"] += int((hg <= SERVE_ROUTER_TIE).sum())
+    over = flip & (m > np.where(after[t], SERVE_ROUTER_TIE_AFTER,
+                                SERVE_ROUTER_TIE))
+    check(not over.any(), f"{what}: tokens {t[over].tolist()[:8]} first "
+                          f"take another expert where the plain router's "
+                          f"margin is {m[over].tolist()[:8]} (limits "
+                          f"{SERVE_ROUTER_TIE}, {SERVE_ROUTER_TIE_AFTER} "
+                          f"after an earlier token)")
+    over = ~flip & (e > SERVE_EDGE_RANKS)
+    check(not over.any(), f"{what}: tokens {t[over].tolist()[:8]} first "
+                          f"change sides of a capacity {e[over].tolist()[:8]}"
+                          f" ranks from its edge (limit {SERVE_EDGE_RANKS})")
+    share = float(on.sum()) / max(1, int(held.sum()))
+    res["share"] = max(res["share"], share)
+    check(share <= share_limit,
+          f"{what}: {int(on.sum())} of {int(held.sum())} tokens dispatched "
+          f"otherwise than on the plain path (limit share {share_limit})")
+    return first
+
+
+def serve_call_work(name, args, kw):
+    """``(flops, bytes)`` the function of one serve call must do and move,
+    as phase 8 counts them."""
+    if name == "flash_attention":
+        q, k, v = args
+        B, S, Hq, D = q.shape
+        pairs = flash_pairs(S, S, kw["causal"], kw["window"])
+        return 4.0 * D * pairs * B * Hq, 2 * _nbytes(q) + _nbytes(k, v)
+    if name == "paged_attention":
+        q, k_pool, _, pt, kl = args
+        n_keys, n_rows, n_entries = paged_work(q, k_pool, pt, kl,
+                                               kw["window"])
+        row_bytes = k_pool.shape[2] * k_pool.shape[3] * k_pool.element_size()
+        return (4.0 * q.shape[2] * q.shape[1] * n_keys,
+                2 * _nbytes(q) + 2 * n_rows * row_bytes + 4 * n_entries
+                + _nbytes(kl))
+    x, wg, wi, wo = args
+    E, C, D = x.shape
+    return 2.0 * E * C * D * wi.shape[2] * 3, \
+        2 * _nbytes(x) + _nbytes(wg, wi, wo)
+
+
+def serve_bound(flops, n_bytes):
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "operations": flops / BF16_FLOPS}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
+
+
+def check_serve_calls(shadow, res, what):
+    """Each recorded kernel call against its plain version, in the inputs'
+    dtype (``tolerance.TOL``) and on float32 copies of its inputs
+    (``F32_PLAIN_RTOL``, ``F32_PLAIN_ATOL_RMS``)."""
+    shadow.tag = None
+    for name, (first, last) in shadow.calls.items():
+        plain_fn = LM_PLAIN[name]
+        for args, kw, out in ((first,) if first is last else (first, last)):
+            tol = tolerance.TOL[name][str(out.dtype).split(".")[-1]]
+            abs_err, rel_err, ok = held_to(out, plain_fn(*args, **kw), tol,
+                                           tol)
+            plain32 = plain_fn(*[a.float() if a.is_floating_point() else a
+                                 for a in args], **kw)
+            atol32 = tolerance.F32_PLAIN_ATOL_RMS * rms(plain32)
+            abs32, rel32, ok32 = held_to(out, plain32, atol32,
+                                         tolerance.F32_PLAIN_RTOL)
+            del plain32
+            check(ok and ok32, f"{what}: {name} differs from its plain "
+                               f"version (max abs {abs_err}, rel {rel_err}; "
+                               f"float32 plain max abs {abs32}, rel {rel32}"
+                               f", atol {atol32:.3g})")
+            e = res["calls"].setdefault(name, dict(
+                checked=0, max_abs_err=0.0, max_abs_err_f32_plain=0.0))
+            e["checked"] += 1
+            e["max_abs_err"] = max(e["max_abs_err"], abs_err)
+            e["max_abs_err_f32_plain"] = max(e["max_abs_err_f32_plain"],
+                                             abs32)
+    torch.cuda.empty_cache()
+
+
+def serve_int_state(st):
+    """The engine state's integer leaves (the tokens apart)."""
+    return (st.meta.hdr, st.meta.refcount, st.table.page_table,
+            st.table.kv_len, st.table.active, st.done, st.epoch)
+
+
+def check_lockstep_state(ks, ps, res, what, taint=None):
+    """The integer state bit for bit. With ``taint`` ({slot: host bool
+    [max_len], the positions whose own MoE dispatch differed}), the KV
+    pools at every other written position of those slots: the first
+    layer's bit for bit (its K/V come from the embeddings through the same
+    operations on both paths), every layer's within a relative RMS
+    difference of ``SERVE_LOGIT_RRMS``; the share of values outside the
+    bf16 rule (``tolerance.LM_TOL``) is recorded."""
+    same(serve_int_state(ks), serve_int_state(ps), f"{what}: engine state")
+    if not taint:
+        return
+    t = ps.table
+    kv_len = t.kv_len.cpu().numpy()
+    pt = t.page_table.cpu().numpy()
+    ps_ = SERVE_ECFG.page_size
+    pages, offs = [], []
+    for s, bad in taint.items():
+        pos = np.arange(kv_len[s])
+        pos = pos[~bad[pos] & (pt[s, pos // ps_] >= 0)]
+        pages.append(pt[s, pos // ps_])
+        offs.append(pos % ps_)
+    page = torch.as_tensor(np.concatenate(pages), device=t.kv_len.device)
+    off = torch.as_tensor(np.concatenate(offs), device=page.device)
+    tol = tolerance.LM_TOL["bfloat16"]
+    for layer, (dk, dp) in enumerate(zip(ks.data, ps.data)):
+        for a, b in ((dk.k, dp.k), (dk.v, dp.v)):
+            a, b = a[page, off], b[page, off]
+            if layer == 0:
+                check(torch.equal(a, b), f"{what}: the first layer's KV "
+                                         f"pool differs")
+            d = a.float() - b.float()
+            rr = rms(d) / rms(b)
+            out = float((d.abs() > tol + tol * b.float().abs()).float()
+                        .mean())
+            res["pool_err"] = max(res["pool_err"], float(d.abs().max()))
+            res["pool_rrms"] = max(res["pool_rrms"], rr)
+            res["pool_out"] = max(res["pool_out"], out)
+            check(rr <= SERVE_LOGIT_RRMS,
+                  f"{what}: layer {layer}'s KV pool: relative RMS "
+                  f"difference {rr:.4g} > {SERVE_LOGIT_RRMS}")
+
+
+def margin_gate(lk, lp, rows, reqs, res, what):
+    """Greedy tokens equal where the plain path's top-1/top-2 margin
+    exceeds ``SERVE_MARGIN`` times the row's max |logit difference|;
+    counts the tested positions by request."""
+    lk, lp = lk[rows].float(), lp[rows].float()
+    d = lk - lp
+    top2 = lp.topk(2, dim=-1).values
+    tested = (top2[:, 0] - top2[:, 1]) > SERVE_MARGIN * d.abs().amax(dim=-1)
+    agree = lk.argmax(dim=-1) == lp.argmax(dim=-1)
+    check(bool((agree | ~tested).all()), f"{what}: a greedy token differs "
+                                         f"where the margin tests it")
+    for r, t in zip(reqs, tested.tolist()):
+        res["tested"][r] = res["tested"].get(r, 0) + int(t)
+    res["positions"] += len(rows)
+
+
+def rrms_gate(lk, lp, clean, res, what):
+    """The relative RMS of the logits' difference over the rows ``clean``
+    (whose token's MoE dispatch was the plain path's); fails where there
+    are none."""
+    res["rows"] += len(clean)
+    check(len(clean) > 0, f"{what}: every row of logits was dispatched "
+                          f"otherwise than on the plain path")
+    d = lk[clean].float() - lp[clean].float()
+    rrms = rms(d) / rms(lp[clean])
+    res["rrms"] = max(res["rrms"], rrms)
+    check(rrms <= SERVE_LOGIT_RRMS, f"{what}: logits' relative RMS "
+                                    f"difference {rrms:.4g} > "
+                                    f"{SERVE_LOGIT_RRMS} over the rows "
+                                    f"{clean}")
+
+
+def prompt_margins(cfg, model, shadow, lens, reqs, res, what):
+    """The margin gate at every prompt position of an admission (teacher
+    forced by the prompt itself), from both engines' final hidden states,
+    128 rows of logits at a time."""
+    hk, hp = shadow.hidden["k"], shadow.hidden["p"]
+    for i, (n, r) in enumerate(zip(lens, reqs)):
+        for j in range(0, n, 128):
+            m = min(128, n - j)
+            margin_gate(*(transformer.lm_head(h[i, j:j + m], model.embed,
+                                              cfg.logit_softcap)
+                          for h in (hk, hp)),
+                        list(range(m)), [r] * m, res, what)
+
+
+def contract_holds(table):
+    """Host bool [B]: every page below ``ceil((kv_len + 1) / page)`` is
+    mapped, the paged kernel's contract (no window narrows it here)."""
+    pt = table.page_table
+    need = -(-(table.kv_len.long() + 1) // SERVE_ECFG.page_size)
+    col = torch.arange(pt.shape[1], device=pt.device)[None]
+    return ((pt >= 0) | (col >= need[:, None])).all(dim=1).cpu().numpy()
+
+
+def serve_lockstep(cfg, model, prompts):
+    """Gates 1-4: the kernel engine and the plain engine in lockstep, the
+    plain engine's tokens and ``done`` copied into the kernel engine after
+    every admission and step; each kernel's first and last call of every
+    admission and step against its plain version; the plain sub-batch's
+    lanes against the contract. A token whose MoE dispatch differed from
+    the plain path's (another expert, or another side of a capacity) must
+    first have differed at a near tie (:func:`dispatch_firsts`); it is
+    counted, and its logits row and its K/V are left out of the RMS and
+    pool checks."""
+    ke = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=True)
+    pe = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=False)
+    ks, ps = ke.init_state(), pe.init_state()
+    res = dict(admits=0, steps=0, paged_steps=0, rrms=0.0, pool_err=0.0,
+               pool_rrms=0.0, pool_out=0.0, tested={}, calls={},
+               mixed_steps=0, plain_lanes=0, sub_batch_err=0.0, rows=0,
+               positions=0, diverged_tokens=0, diverged_rows=0, tie=0.0,
+               tie_n=0, tie_after=0.0, tie_after_n=0, edge=-1, edge_n=0,
+               share=0.0, gaps=0, gaps_under=0)
+    L = cfg.n_layers
+    force = lambda k, p: k._replace(tokens=p.tokens.clone(),  # noqa: E731
+                                    done=p.done.clone())
+    reset_launch_counts()
+    with ServeShadow() as shadow:
+        for w, (reqs, wave) in enumerate(waves(prompts)):
+            shadow.step("k")
+            ks, lk, sid = ke.admit_logits(ks, wave)
+            shadow.step("p")
+            ps, lp, _ = pe.admit_logits(ps, wave)
+            shadow.tag = None
+            what = f"{cfg.name} wave {w + 1} admission"
+            slots = sid.tolist()
+            lens = [len(p) for p in wave]
+            # each pool position's first diverging MoE layer, L where none
+            taint = {s: np.full(SERVE_ECFG.max_len, L) for s in slots}
+            if cfg.n_experts:
+                S = shadow.routes["p"][0][1].shape[0] // len(slots)
+                held = np.arange(S)[None] < np.array(lens)[:, None]
+                first = dispatch_firsts(cfg, shadow, cfg.capacity_factor,
+                                        len(slots), np.full(len(slots), L),
+                                        held, SERVE_DIVERTED_ADMIT, res, what)
+                for i, (s, n) in enumerate(zip(slots, lens)):
+                    taint[s][:n] = first[i, :n]
+                res["diverged_tokens"] += int((first[held] < L).sum())
+            check_serve_calls(shadow, res, what)
+            prompt_margins(cfg, model, shadow, lens, reqs, res, what)
+            clean = [i for i, (s, n) in enumerate(zip(slots, lens))
+                     if taint[s][n - 1] == L]
+            res["diverged_rows"] += len(slots) - len(clean)
+            rrms_gate(lk, lp, clean, res, what)
+            ps = pe.sample_first(ps, lp, sid)
+            ks = force(ke.sample_first(ks, lk, sid), ps)
+            check_lockstep_state(ks, ps, res, what,
+                                 {s: taint[s] < L for s in slots})
+            res["admits"] += 1
+            req_of = dict(zip(slots, reqs))
+            for i in range(SERVE_MAX_NEW - 1):
+                if bool((ps.done | ~ps.table.active).all()):
+                    break
+                what = f"{cfg.name} wave {w + 1} step {i + 1}"
+                shadow.step("k")
+                ks, lk = ke.decode_logits(ks)
+                shadow.step("p")
+                ps, lp = pe.decode_logits(ps)
+                shadow.tag = None
+                holds = contract_holds(ps.table)
+                for win, (good, bad) in ke.last_split.items():
+                    check(list(good) == list(holds.nonzero()[0]),
+                          f"{what}: the engine's kernel lanes {list(good)} "
+                          f"(window {win}) are not the contract's "
+                          f"{list(holds.nonzero()[0])}")
+                res["paged_steps"] += bool(holds.any())
+                bad = (~holds).nonzero()[0]
+                if len(bad):
+                    # the first layer's inputs are the same in both
+                    # engines: the plain sub-batch must give the plain
+                    # engine's rows there
+                    ob = shadow.first_plain["k"]
+                    op = shadow.first_plain["p"][torch.as_tensor(
+                        bad, device=ob.device)]
+                    tol = tolerance.LM_TOL["bfloat16"]
+                    err, _, ok = held_to(ob, op, tol, tol)
+                    check(ok, f"{what}: the plain sub-batch differs from "
+                              f"the plain engine (max abs {err})")
+                    res["sub_batch_err"] = max(res["sub_batch_err"], err)
+                    res["plain_lanes"] += len(bad)
+                    res["mixed_steps"] += bool(holds.any())
+                live = (ps.table.active & ~ps.done).cpu().numpy()
+                rows = live.nonzero()[0].tolist()
+                d = np.zeros_like(live)
+                if cfg.n_experts:
+                    pos = ps.table.kv_len.cpu().numpy()
+                    prior = np.array([taint[s][:pos[s]].min() if s in taint
+                                      and pos[s] else L
+                                      for s in range(len(live))])
+                    first = dispatch_firsts(
+                        cfg, shadow, max(2.0, cfg.capacity_factor),
+                        len(live), prior, live[:, None],
+                        SERVE_DIVERTED_STEP, res, what)[:, 0]
+                    d = (first < L) & live
+                    res["diverged_tokens"] += int(d.sum())
+                    res["diverged_rows"] += int(d.sum())
+                    for s in rows:
+                        taint[s][pos[s]] = first[s]
+                check_serve_calls(shadow, res, what)
+                margin_gate(lk, lp, rows, [req_of[r] for r in rows], res,
+                            what)
+                rrms_gate(lk, lp, [r for r in rows if not d[r]], res, what)
+                ks, ps = ke.sample(ks, lk), pe.sample(ps, lp)
+                ks = force(ks, ps)
+                check_lockstep_state(ks, ps, res, what,
+                                     {s: taint[s] < L for s in rows})
+                res["steps"] += 1
+            # stragglers are forced done at the wave's budget and released
+            ks = ke.release_finished(ks._replace(done=ks.done
+                                                 | ks.table.active))
+            ps = pe.release_finished(ps._replace(done=ps.done
+                                                 | ps.table.active))
+            check_lockstep_state(ks, ps, res, f"{cfg.name} wave {w + 1} "
+                                              f"release")
+    res["launches"] = {n: launch_counts()[n] for n in SERVE_KERNELS}
+    return res
+
+
+def call_bounds(fn):
+    """Run ``fn()`` with each serve kernel's wrapper recording the bound of
+    every call's work; returns ``{name: [(bound ms, bound by), ...]}``."""
+    out = {n: [] for n in SERVE_KERNELS}
+    mods = dict(zip(SERVE_KERNELS, (flash_ops, paged_ops, moe_ops)))
+    orig = {n: getattr(m, n) for n, m in mods.items()}
+
+    def wrap(name):
+        def call(*args, **kw):
+            out[name].append(serve_bound(*serve_call_work(name, args, kw)))
+            return orig[name](*args, **kw)
+        return call
+    try:
+        for n, m in mods.items():
+            setattr(m, n, wrap(n))
+        fn()
+    finally:
+        for n, m in mods.items():
+            setattr(m, n, orig[n])
+    return out
+
+
+def serve_timed(cfg, model, prompts, kernels):
+    """The traffic through one engine: prefill ms of each wave, each
+    decode step's ms (host clock, synchronised), the tokens decoded; then
+    wave 1's admission and ``SERVE_PROFILE_STEPS`` decode steps again from
+    a fresh state under the profiler, and once more (the engine is
+    deterministic) with each kernel call's bound recorded."""
+    eng = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=kernels)
+    st = eng.init_state()
+    prefill, steps, n_tokens = [], [], 0
+    for _, wave in waves(prompts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = eng.admit(st, wave)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(SERVE_MAX_NEW - 1):
+            if bool((st.done | ~st.table.active).all()):
+                break
+            t0 = time.perf_counter()
+            st = eng.decode_step(st)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            n_tokens += int((st.table.active & ~st.done).sum())
+        st = eng.release_finished(st._replace(done=st.done
+                                              | st.table.active))
+    del st
+    box = [eng.init_state()]
+    wave = waves(prompts)[0][1]
+
+    def admit():
+        box[0] = eng.admit(box[0], wave)
+
+    def decode():
+        for _ in range(SERVE_PROFILE_STEPS):
+            box[0] = eng.decode_step(box[0])
+    reset_launch_counts()
+    admit_prof = profiled(admit)
+    admit_calls = launch_counts()
+    reset_launch_counts()
+    dec = profiled(decode)
+    dec_calls = launch_counts()
+    box[0] = eng.init_state()
+    admit_bounds = call_bounds(admit)
+    decode_bounds = call_bounds(decode)
+    del box
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill, step_ms=steps, tokens=n_tokens,
+                admit_profile=admit_prof, admit_calls=admit_calls,
+                admit_bounds=admit_bounds, decode_profile=dec,
+                decode_calls=dec_calls, decode_bounds=decode_bounds)
+
+
+def per_call_us(profile, calls, name):
+    """A wrapper call's device time in a profile: its kernel functions'
+    time over the wrapper's calls."""
+    rows = profile[2]
+    t = sum(t for k, t, _ in rows if SERVE_TRACE[name] in k)
+    return t / calls[name] if calls[name] else None
+
+
+def run_serve_phase(args, dev, smi, lm_records):
+    """Phase 12 over ``SERVE_CONFIGS``; returns each serve kernel's
+    launches and per-call times by config."""
+    out = {n: {} for n in SERVE_KERNELS}
+    phase8 = {r["name"]: r for r in lm_records}
+    for arch, n_layers in SERVE_CONFIGS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        model = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(args.seed + 12),
+            dev)
+        prompts = serve_prompts(args.seed + 12, cfg.vocab)
+        n_weights = sum(p.numel() * p.element_size()
+                        for p in model.parameters())
+        print(f"serve {arch}: {n_layers} of {get_arch(arch).n_layers} "
+              f"layers, weights {n_weights / 1e9:.3f} GB (bf16, random "
+              f"from the seed), prompts {[len(p) for p in prompts]}",
+              flush=True)
+        res = serve_lockstep(cfg, model, prompts)
+        want = {"flash_attention": n_layers * res["admits"],
+                "paged_attention": n_layers * res["paged_steps"],
+                "moe_gmm": n_layers * (res["admits"] + res["steps"])
+                if cfg.n_experts else 0}
+        check(res["launches"] == want, f"serve {arch}: launches "
+                                       f"{res['launches']}, expected {want}")
+        short = [r for r in range(len(prompts))
+                 if res["tested"].get(r, 0) < 1]
+        check(not short, f"serve {arch}: requests {short} have no position "
+                         f"whose margin tests the greedy token")
+        check(res["mixed_steps"] > 0, f"serve {arch}: no step served "
+                                      f"contract lanes beside kernel lanes")
+        print(f"serve {arch} MoE dispatch: {res['diverged_tokens']} "
+              f"tokens dispatched otherwise than on the plain path (at most "
+              f"{res['share']:.4g} of an admission's or a step's, limits "
+              f"{SERVE_DIVERTED_ADMIT} and {SERVE_DIVERTED_STEP}), "
+              f"{res['diverged_rows']} of them rows "
+              f"of logits (left out of the RMS: {res['rows']} held to it); "
+              f"at its first differing layer, {res['tie_n']} took another "
+              f"expert at a plain router margin of at most {res['tie']:.4g} "
+              f"(limit {SERVE_ROUTER_TIE}; "
+              f"{res['gaps_under'] / max(1, res['gaps']):.4g} of all held "
+              f"tokens' top-{cfg.top_k} margins are that small), "
+              f"{res['tie_after_n']} after an earlier token of its row at a "
+              f"margin of at most {res['tie_after']:.4g} (limit "
+              f"{SERVE_ROUTER_TIE_AFTER}), {res['edge_n']} changed sides of "
+              f"a capacity at most {res['edge']} ranks from its edge (limit "
+              f"{SERVE_EDGE_RANKS}); the K/V of the others: "
+              f"the first layer's bit-identical, every layer's relative RMS "
+              f"difference at most {res['pool_rrms']:.4g} (limit "
+              f"{SERVE_LOGIT_RRMS}), max abs {res['pool_err']:.4g}, at most "
+              f"{res['pool_out']:.4g} of a layer's values outside atol = "
+              f"rtol = {tolerance.LM_TOL['bfloat16']}")
+        print(f"serve {arch} lockstep: {res['admits']} admissions, "
+              f"{res['steps']} decode steps ({res['paged_steps']} with a "
+              f"kernel lane, {res['mixed_steps']} with plain sub-batch "
+              f"lanes beside them, {res['plain_lanes']} lane-steps on the "
+              f"plain sub-batch, first-layer max abs "
+              f"{res['sub_batch_err']:.4g} from the plain engine); launches "
+              f"{res['launches']} = expected; integer state bit-identical "
+              f"at every step; logits' relative RMS difference max "
+              f"{res['rrms']:.4g} (limit {SERVE_LOGIT_RRMS}); greedy tokens "
+              f"equal at {sum(res['tested'].values())} of "
+              f"{res['positions']} positions the margin tests (per request "
+              f"{[res['tested'].get(r, 0) for r in range(len(prompts))]}); "
+              f"kernel calls against their plain versions: {res['calls']}"
+              f" | {smi}", flush=True)
+        for name, n in res["launches"].items():
+            out[name][arch] = dict(launches=n)
+        for kernels in (True, False):
+            label = "kernels" if kernels else "plain"
+            t = serve_timed(cfg, model, prompts, kernels)
+            steps = torch.tensor(t["step_ms"], dtype=torch.float64)
+            syncs = {k: v / SERVE_PROFILE_STEPS
+                     for k, v in t["decode_profile"][3].items()}
+            wall, busy = t["decode_profile"][:2]
+            awall, abusy = t["admit_profile"][:2]
+            print(f"serve {arch}, {label}: prefill "
+                  f"{[round(x, 3) for x in t['prefill_ms']]} ms per wave; "
+                  f"decode step median {steps.median():.3f} ms (min "
+                  f"{steps.min():.3f}, max {steps.max():.3f}, {len(steps)} "
+                  f"steps); {t['tokens'] / steps.sum() * 1e3:.1f} decoded "
+                  f"tokens/s; host syncs a step {syncs}; idle share over "
+                  f"{SERVE_PROFILE_STEPS} profiled steps "
+                  f"{1 - busy / wall:.4f} (wave 1 admission: "
+                  f"{1 - abusy / awall:.4f}) | {smi}", flush=True)
+            per = SERVE_PROFILE_STEPS
+            for key, t_us, n in t["decode_profile"][2][:6]:
+                print(f"  decode, {label}: {t_us / 1e3 / per:8.3f} ms a "
+                      f"step, {n / per:6.1f}x  {key[:70]}")
+            if not kernels:
+                continue
+            for name in SERVE_KERNELS:
+                for where, prof, calls, bounds in (
+                        ("prefill", t["admit_profile"], t["admit_calls"],
+                         t["admit_bounds"]),
+                        ("decode", t["decode_profile"], t["decode_calls"],
+                         t["decode_bounds"])):
+                    us = per_call_us(prof, calls, name)
+                    if us is None:
+                        continue
+                    rec = out[name][arch]
+                    rec[f"{where}_ms"] = us / 1e3
+                    rec[f"{where}_calls_profiled"] = calls[name]
+                    line = f"serve {arch}: {name} in {where}: {us / 1e3:.4f}"\
+                           f" ms a call (device, {calls[name]} calls)"
+                    b = bounds[name]
+                    check(len(b) == calls[name],
+                          f"serve {arch}: {name} in {where}: {len(b)} calls "
+                          f"bounded, {calls[name]} profiled")
+                    b_ms = sum(ms for ms, _ in b) / len(b)
+                    by = [w for _, w in b]
+                    b_by = max(set(by), key=by.count)
+                    rec.update({f"{where}_bound_ms": b_ms,
+                                f"{where}_bound_by": b_by})
+                    line += f", bound {b_ms:.4f} ms ({b_by}), the mean " \
+                            f"over the same calls"
+                    p8 = phase8.get(name)
+                    if p8:
+                        line += f"; phase 8 {p8['case']}: {p8['ms']:.4f} " \
+                                f"ms, bound {p8['bound_ms']:.4f} ms"
+                    print(line + f" | {smi}")
+        print(f"serve {arch}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase "
+              f"{time.perf_counter() - t0:.2f} s | {smi}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 # -------------------------------------------------------------- main ----
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2888,6 +3645,20 @@ def main(argv=None):
             k["launches_by_path"].update(
                 {p: n[k["name"]] for p, n in paths.items()})
     print(f"oracle phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 12. the serve path ---------------------------------------------
+    t0 = time.perf_counter()
+    del st_load
+    torch.cuda.empty_cache()
+    lm = [k for k in kernels if k["name"] in SERVE_KERNELS]
+    serve = run_serve_phase(args, dev, smi, lm)
+    for k in lm:
+        by_cfg = serve[k["name"]]
+        k["launches_by_path"] = {
+            "ops_entry": k["launches"],
+            "serve": sum(r["launches"] for r in by_cfg.values())}
+        k["serve"] = by_cfg
+    print(f"serve phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB; {time.perf_counter() - t_start:.2f} s in all")

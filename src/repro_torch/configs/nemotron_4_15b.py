@@ -1,0 +1,9 @@
+"""Nemotron-4 15B — dense GQA, squared-ReLU MLP (no gate matrix)
+[arXiv:2402.16819; unverified]."""
+from repro_torch.configs.base import ArchConfig
+
+ARCH = ArchConfig(
+    name="nemotron-4-15b", family="dense",
+    n_layers=32, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=24576,
+    vocab=256000, activation="sq_relu",
+)

@@ -24,6 +24,12 @@ inputs and outputs of the LM kernels) across, bfloat16 included: JAX's
 bfloat16 reaches numpy as an extension dtype named ``bfloat16``, which
 ``torch.from_numpy`` refuses, so its 16-bit words travel as ``int16`` and
 are viewed as ``torch.bfloat16`` on the other side.
+
+``lm_params_from_numpy`` builds the port's ``Transformer`` from the
+reference's ``init_params`` tree (numpy leaves, stacked over pattern units
+on a leading axis: ``u{p}/attn/wq[u]`` becomes ``layers.{u·unit_len +
+p}.attn.wq``), and ``lm_params_to_numpy`` gives the tree back (bfloat16
+leaves as float32, exactly).
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro_torch.core import gc, hashtable as ht, mvcc, rangeindex as ri, \
 from repro_torch.core.tsoracle import GlobalCounterState, \
     NaiveAdapterState, VectorState
 from repro_torch.db.tpcc import TPCCState
+from repro_torch.models.transformer import Transformer
 
 # fields that hold uint32 words in the reference
 U32_FIELDS = frozenset({"cur_hdr", "old_hdr", "ovf_hdr", "vec", "keys",
@@ -143,3 +150,55 @@ def snapshot_log_from_numpy(log, device) -> gc.SnapshotLog:
 
 def snapshot_log_to_numpy(log: gc.SnapshotLog) -> gc.SnapshotLog:
     return _to_np(log)
+
+
+def _lm_leaf(tree, name: str, unit_len: int):
+    """The reference leaf of state-dict key ``name``."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return np.asarray(tree[name])
+    i = int(parts[1])
+    leaf = tree[f"u{i % unit_len}"]
+    for part in parts[2:]:
+        leaf = leaf[part]
+    return np.asarray(leaf)[i // unit_len]
+
+
+def lm_params_from_numpy(cfg, tree, device="cpu", *,
+                         dtype=None) -> Transformer:
+    """The reference's LM parameter tree as the port's ``Transformer`` on
+    ``device``, in ``dtype`` (by default the tree's embedding's; the norm
+    scales and the router stay float32)."""
+    dtype = dtype or tensor_from_numpy(np.asarray(tree["embed"])[:1]).dtype
+    model = Transformer(cfg, dtype=dtype, device=device)
+    ul = cfg.unit_len
+    model.load_state_dict({
+        name: tensor_from_numpy(_lm_leaf(tree, name, ul), device)
+        for name in model.state_dict()})
+    return model
+
+
+def lm_params_to_numpy(model: Transformer) -> dict:
+    """The reference's tree of the port's ``Transformer``: numpy leaves
+    stacked over pattern units, bfloat16 as float32."""
+    ul = model.cfg.unit_len
+    tree = {}
+    for name, t in model.state_dict().items():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            tree[name] = tensor_to_numpy(t)
+            continue
+        i = int(parts[1])
+        node = tree.setdefault(f"u{i % ul}", {})
+        for part in parts[2:-1]:
+            node = node.setdefault(part, {})
+        node.setdefault(parts[-1], {})[i // ul] = tensor_to_numpy(t)
+    return _stack_units(tree)
+
+
+def _stack_units(node):
+    if not isinstance(node, dict):
+        return node
+    if all(isinstance(k, int) for k in node):
+        return np.stack([node[u] for u in sorted(node)])
+    return {k: _stack_units(v) for k, v in node.items()}

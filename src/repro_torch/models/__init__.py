@@ -1,3 +1,4 @@
-"""Model primitives of the LM side: what the LM kernels' plain versions
-delegate to (``common``: chunked and decode attention; ``recurrent``: the
-chunked linear recurrence)."""
+"""The LM model stack (``repro/models``) for attention architectures:
+primitives (``common``), MoE (``moe``), layer blocks (``blocks``), the
+transformer (``transformer``) and its API (``api``); ``recurrent`` holds
+the chunked linear recurrence the scan kernel's plain version runs."""

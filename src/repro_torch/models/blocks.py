@@ -1,0 +1,231 @@
+"""Per-layer blocks (``repro/models/blocks.py``): GQA attention and MLPs,
+as ``nn.Module``s whose parameter names are the reference's leaf names, and
+the reference's functions over them.
+
+Parameter layout (a state-dict key ``layers.{i}.attn.wq`` is the
+reference's ``u{p}/attn/wq[u]`` for layer ``i = u·unit_len + p``):
+  wq [D, Hq*Dh]   wk/wv [D, Hkv*Dh]   wo [Hq*Dh, D]
+  mlp: w_gate/w_in [D, F], w_out [F, D]   (sq_relu: no w_gate)
+  moe: router [D, E], w_gate/w_in [E, D, F], w_out [E, F, D]
+
+Only attention layers are ported. The mamba, mLSTM and sLSTM layer kinds,
+cross-attention and ``kv_override`` wait for slice F2 (the recurrent,
+hybrid and encoder-decoder serve paths) and raise ``NotImplementedError``.
+
+On the card, :func:`attn_forward` over the positions ``0..S-1`` of every
+row (``positions=None``), causal, with no ``prefix_len``, runs the
+``flash_attention`` kernel; every other call runs the plain
+``chunked_attention``. ``kernels=False`` keeps the card on the plain path.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import common
+from repro_torch.models.moe import MoE, apply_moe
+
+_LATER = ("the {} layer kind waits for slice F2 (the recurrent and hybrid "
+          "serve path)")
+
+
+def _param(shape, dtype, device):
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+# ----------------------------------------------------------- attention ----
+class Attention(nn.Module):
+    """The projections; drawn from ``generator`` when one is given, else
+    left uninitialised (for weights loaded afterwards)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device=None, generator=None):
+        super().__init__()
+        D, Dh = cfg.d_model, cfg.d_head
+        self.wq = _param((D, cfg.n_heads * Dh), dtype, device)
+        self.wk = _param((D, cfg.n_kv_heads * Dh), dtype, device)
+        self.wv = _param((D, cfg.n_kv_heads * Dh), dtype, device)
+        self.wo = _param((cfg.n_heads * Dh, D), dtype, device)
+        if generator is not None:
+            for w in (self.wq, self.wk, self.wv):
+                common.normal_(w, D ** -0.5, generator)
+            common.normal_(self.wo, (cfg.n_heads * Dh) ** -0.5, generator)
+
+
+def init_attn(cfg: ArchConfig, dtype, *, generator, device=None):
+    return Attention(cfg, dtype, device, generator)
+
+
+def attn_forward(p, x, positions, cfg: ArchConfig, *, window, causal=True,
+                 prefix_len=None, kv_override=None, chunk=512, kernels=True):
+    """Full-sequence attention (train / prefill). Returns (y, (k, v)).
+
+    ``positions`` [B, S], or None for ``0..S-1`` in every row: only then
+    may a causal call without ``prefix_len`` on the card run the flash
+    kernel."""
+    if kv_override is not None:
+        raise NotImplementedError("cross-attention (kv_override) waits for "
+                                  "slice F2 (the encoder-decoder path)")
+    B, S, D = x.shape
+    Dh = cfg.d_head
+    arange = positions is None
+    if arange:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, Dh)
+    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, Dh)
+    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, Dh)
+    k = common.rope(k, positions, cfg.rope_theta)
+    q = common.rope(q, positions, cfg.rope_theta)
+    if kernels and x.is_cuda and arange and causal and prefix_len is None:
+        o = flash_ops.flash_attention(q, k, v, causal=True, window=window,
+                                      softcap=cfg.attn_softcap)
+    else:
+        o = common.chunked_attention(
+            q, k, v, positions_q=positions, positions_k=positions,
+            causal=causal, window=window, prefix_len=prefix_len,
+            attn_cap=cfg.attn_softcap, chunk=min(chunk, S))
+    y = o.reshape(B, S, cfg.n_heads * Dh) @ p.wo
+    return y, (k, v)
+
+
+def attn_decode(p, x, k_cache, v_cache, kv_len, cfg: ArchConfig, *, window):
+    """One-token decode. x: [B, 1, D]; caches [B, S, Hkv, Dh]; kv_len [B].
+
+    Writes the new K/V at position kv_len (per sequence, in place) then
+    attends."""
+    B = x.shape[0]
+    Dh = cfg.d_head
+    pos = kv_len.to(torch.int32)
+    q = (x @ p.wq).reshape(B, cfg.n_heads, Dh)
+    k = (x @ p.wk).reshape(B, 1, cfg.n_kv_heads, Dh)
+    v = (x @ p.wv).reshape(B, 1, cfg.n_kv_heads, Dh)
+    k = common.rope(k, pos[:, None], cfg.rope_theta)[:, 0]
+    q = common.rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    k_cache, v_cache = common.kv_cache_update(k_cache, v_cache, k, v[:, 0],
+                                              pos)
+    o = common.decode_attention(q, k_cache, v_cache, kv_len + 1,
+                                window=window, attn_cap=cfg.attn_softcap)
+    y = o.reshape(B, 1, cfg.n_heads * Dh) @ p.wo
+    return y, (k_cache, v_cache)
+
+
+# ----------------------------------------------------------------- MLP ----
+class MLP(nn.Module):
+    """The gated (or, for ``sq_relu``, ungated) MLP; drawn from
+    ``generator`` when one is given."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device=None, generator=None):
+        super().__init__()
+        D, F = cfg.d_model, cfg.d_ff
+        self.w_in = _param((D, F), dtype, device)
+        self.w_out = _param((F, D), dtype, device)
+        if cfg.activation != "sq_relu":
+            self.w_gate = _param((D, F), dtype, device)
+        if generator is not None:
+            for name, w in self.named_parameters():
+                common.normal_(w, (F if name == "w_out" else D) ** -0.5,
+                               generator)
+
+
+def init_mlp(cfg: ArchConfig, dtype, *, generator, device=None):
+    return MLP(cfg, dtype, device, generator)
+
+
+def mlp_forward(p, x, cfg: ArchConfig):
+    h = x @ p.w_in
+    if cfg.activation == "sq_relu":
+        h = common.activate(h, "sq_relu")
+    else:
+        h = common.activate(x @ p.w_gate, cfg.activation) * h
+    return h @ p.w_out
+
+
+# --------------------------------------------------------- one layer ------
+class Layer(nn.Module):
+    """One decoder layer: ``ln1``, ``attn``, and ``ln2`` with ``mlp`` or
+    ``moe`` (neither when ``spec.mlp == "none"``). The norm scales start at
+    zero, as the reference's; the weights are drawn from ``generator``
+    when one is given."""
+
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device=None,
+                 generator=None):
+        super().__init__()
+        if spec.kind != "attn":
+            raise NotImplementedError(_LATER.format(spec.kind))
+        self.spec = spec
+        D = cfg.d_model
+        self.ln1 = nn.Parameter(torch.zeros(D, device=device))
+        self.attn = Attention(cfg, dtype, device, generator)
+        if spec.mlp != "none":
+            self.ln2 = nn.Parameter(torch.zeros(D, device=device))
+        if spec.mlp == "dense":
+            self.mlp = MLP(cfg, dtype, device, generator)
+        elif spec.mlp == "moe":
+            self.moe = MoE(D, cfg.d_ff, cfg.n_experts, dtype, device,
+                           generator)
+
+
+def init_layer(cfg: ArchConfig, spec: LayerSpec, dtype, *, generator,
+               device=None) -> Layer:
+    return Layer(cfg, spec, dtype, device, generator)
+
+
+class LayerCacheSlot(NamedTuple):
+    """Decode-time cache of ONE layer. Unused fields are () placeholders
+    (the recurrent kinds' states wait for slice F2)."""
+    k: object = ()
+    v: object = ()
+    mamba: object = ()
+    mlstm: object = ()
+    slstm: object = ()
+
+
+def moe_block(p, x, cfg: ArchConfig, capacity_factor, kernels=True):
+    """The MoE half of layer ``p`` on x [B, S, D] (its output, to be added
+    to x). The experts use ``apply_moe``'s default activation, SiLU,
+    whatever ``cfg.activation`` says, as the reference's blocks call it."""
+    B, S, D = x.shape
+    h2 = common.rms_norm(x, p.ln2, cfg.norm_eps).reshape(B * S, D)
+    y2, _ = apply_moe(p.moe, h2, top_k=cfg.top_k,
+                      capacity_factor=capacity_factor, kernels=kernels)
+    return y2.reshape(B, S, D)
+
+
+def layer_forward(p, x, positions, cfg: ArchConfig, spec: LayerSpec, *,
+                  prefix_len=None, causal=True, kernels=True):
+    """Train/prefill forward of one layer. Returns (x, cache_slot)."""
+    if spec.kind != "attn":
+        raise NotImplementedError(_LATER.format(spec.kind))
+    h = common.rms_norm(x, p.ln1, cfg.norm_eps)
+    y, (k, v) = attn_forward(p.attn, h, positions, cfg, window=spec.window,
+                             causal=causal, prefix_len=prefix_len,
+                             kernels=kernels)
+    x = x + y
+    if spec.mlp == "dense":
+        x = x + mlp_forward(p.mlp, common.rms_norm(x, p.ln2, cfg.norm_eps),
+                            cfg)
+    elif spec.mlp == "moe":
+        x = x + moe_block(p, x, cfg, cfg.capacity_factor, kernels)
+    return x, LayerCacheSlot(k=k, v=v)
+
+
+def layer_decode(p, x, cache: LayerCacheSlot, kv_len, cfg: ArchConfig,
+                 spec: LayerSpec, *, kernels=True):
+    """One-token decode of one layer. Returns (x, new_cache_slot)."""
+    if spec.kind != "attn":
+        raise NotImplementedError(_LATER.format(spec.kind))
+    h = common.rms_norm(x, p.ln1, cfg.norm_eps)
+    y, (k, v) = attn_decode(p.attn, h, cache.k, cache.v, kv_len, cfg,
+                            window=spec.window)
+    cache = cache._replace(k=k, v=v)
+    x = x + y
+    if spec.mlp == "dense":
+        x = x + mlp_forward(p.mlp, common.rms_norm(x, p.ln2, cfg.norm_eps),
+                            cfg)
+    elif spec.mlp == "moe":
+        x = x + moe_block(p, x, cfg, max(2.0, cfg.capacity_factor),
+                          kernels)
+    return x, cache

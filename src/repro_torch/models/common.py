@@ -1,17 +1,93 @@
-"""Attention primitives of the model stack (``repro/models/common.py``):
-logit softcap, the online-softmax step, chunked attention and decode
-attention. They are the plain versions the attention kernels are held
-against, so they keep the reference's numerics: the query is scaled in its
-own dtype, the scores of a bfloat16 product are rounded to bfloat16 before
-they are widened, and the softmax and the value sum run in float32.
+"""Shared model primitives (``repro/models/common.py``): norms, RoPE,
+activations, the embedding lookup, the one-card KV cache write, logit
+softcap, the online-softmax step, chunked attention and decode attention.
+
+The attention functions are also the plain versions the attention kernels
+are held against, so they keep the reference's numerics: the query is
+scaled in its own dtype, the scores of a bfloat16 product are rounded to
+bfloat16 before they are widened, and the softmax and the value sum run in
+float32.
+
+The reference's ``pin``, ``pin_batch`` and ``name_for_remat`` constrain
+shardings over a device mesh and tag tensors for rematerialisation; on one
+card there is nothing to pin or tag, so they have no counterpart here, and
+``embed_lookup`` and ``kv_cache_update`` keep only the reference's
+branch without a mesh.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def normal_(w, std: float, generator):
+    """Fill parameter ``w`` in place with N(0, std²) draws from
+    ``generator`` (random initialisation; the reference's ``init_*``
+    draws from a JAX key instead)."""
+    with torch.no_grad():
+        w.normal_(0.0, std, generator=generator)
+    return w
+
+
+def embed_lookup(embed, tokens):
+    """``embed[tokens]``: token ids [...] → embeddings [..., D]."""
+    return embed[tokens.long()]
+
+
+def kv_cache_update(k_cache, v_cache, k_new, v_new, pos):
+    """Decode-step KV write at per-sequence positions, in place.
+
+    k_cache/v_cache: [B, S, Hkv, Dh]; k_new/v_new: [B, Hkv, Dh]; pos: [B].
+    A position past the cache is dropped, as the reference's scatter drops
+    it: such a row writes its own old value back. Returns the caches.
+    """
+    B, S = k_cache.shape[0], k_cache.shape[1]
+    b = torch.arange(B, device=k_cache.device)
+    p = pos.long()
+    p = torch.where(p < 0, p + S, p)
+    ok = ((p >= 0) & (p < S))[:, None, None]
+    p = p.clamp(0, S - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[b, p] = torch.where(ok, new.to(cache.dtype), cache[b, p])
+    return k_cache, v_cache
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope(x, positions, theta: float = 1e4):
+    """Rotary embedding. x: [..., S, H, D]; positions: [..., S]. The
+    angles are float32; the result has x's dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., :, None, None].float() * freq  # [.., S, 1, half]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def activate(x, kind: str):
+    """``gelu`` is the tanh approximation, ``jax.nn.gelu``'s default."""
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if kind == "sq_relu":   # nemotron-4: squared ReLU
+        r = F.relu(x)
+        return r * r
+    raise ValueError(kind)
 
 
 def softcap(logits, cap: Optional[float]):
@@ -107,9 +183,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=None,
         if sink_len:
             in_win = in_win | (pos < sink_len)
         vis = vis & in_win
-    s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache).float()
+    dt = torch.promote_types(q.dtype, k_cache.dtype)   # JAX's promotion
+    s = torch.einsum("bkgd,bskd->bkgs", qh.to(dt), k_cache.to(dt)).float()
     s = softcap(s, attn_cap)
     s = torch.where(vis[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype), v_cache)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).to(dt), v_cache.to(dt))
     return o.reshape(B, Hq, D)

@@ -1,2 +1,2 @@
-"""Serving: the paged KV cache's page data and sequence table, and the
-gather that the paged attention kernel's plain version runs."""
+"""Serving: the paged KV pool (``kvcache``) and the continuous-batching
+engine over it (``engine``)."""

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch._u32 import np_to_i32
+from repro_torch.configs import get_arch, reduced
 from repro_torch.core import cas as tcas, header as theader, \
     hashtable as tht, mvcc as tmvcc, si as tsi, store
 from repro_torch.core import tsoracle as tts
@@ -40,6 +41,9 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.tolerance import F32_PLAIN_ATOL_RMS, \
     F32_PLAIN_RTOL, LM_TOL, MAMBA_TOL
+from repro_torch.kernels import _build
+from repro_torch.models import moe, transformer
+from repro_torch.serve import engine, kvcache as kvc
 
 
 def _t(a, device="cpu"):
@@ -1576,3 +1580,225 @@ def test_oracle_functions_on_card_match_cpu():
          granted, txn, active)
     both("key64", theader.key64,
          _t(rng.randint(0, 1 << 32, (5, 2)).astype(np.uint32)))
+
+
+# ------------------------------------------------------ the serve path ----
+def _serve_model(aid, dev, seed=0, **kw):
+    """A reduced configuration in bf16 with weights drawn on the card."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_arch(aid)), **kw)
+    return cfg, transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+def _serve_prompts(seed, n, vocab, lens=(4, 20)):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(2, vocab, rng.randint(lens[0], lens[1] + 1))
+            .astype(np.int32) for _ in range(n)]
+
+
+def _serve_int_state(st):
+    return [st.meta.hdr, st.meta.refcount, st.table.page_table,
+            st.table.kv_len, st.table.active, st.done, st.epoch]
+
+
+def _logits_close(lk, lp, rows, limit=0.05):
+    """Relative RMS of the logits' difference over ``rows`` within
+    ``limit``; greedy tokens equal where the plain margin exceeds four times
+    the row's max |difference|."""
+    a, b = lk[rows].float(), lp[rows].float()
+    d = a - b
+    assert float(d.pow(2).mean().sqrt() / b.pow(2).mean().sqrt()) <= limit
+    top2 = b.topk(2, dim=-1).values
+    tested = (top2[:, 0] - top2[:, 1]) > 4 * d.abs().amax(dim=-1)
+    assert bool(((a.argmax(-1) == b.argmax(-1)) | ~tested).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aid", ["granite-3-8b", "gemma2-27b"])
+def test_engine_kernel_path_matches_plain_path_on_card(aid):
+    """Two waves of 12 requests through the engine with the kernels and
+    through its plain path in lockstep, the plain path's tokens and done
+    flags copied into the kernel path's state after every admission and
+    step: the integer state is equal throughout, the logits within a
+    relative RMS of 0.05, and the kernels launch once a layer for every
+    admission (flash) and every step with a lane in the paged kernel's
+    contract."""
+    dev = _cuda()
+    cfg, model = _serve_model(aid, dev)
+    ecfg = engine.EngineConfig(max_seqs=8, page_size=16, n_pages=64,
+                               max_len=64)
+    ke = engine.Engine(cfg, model, ecfg, kernels=True)
+    pe = engine.Engine(cfg, model, ecfg, kernels=False)
+    ks, ps = ke.init_state(), pe.init_state()
+    flash0 = flash_ops.flash_attention.launches
+    paged0 = paged_ops.paged_attention.launches
+    admits = kernel_steps = 0
+    prompts = _serve_prompts(1, 12, cfg.vocab)
+    for wave in (prompts[:8], prompts[8:]):
+        ks, lk, sid = ke.admit_logits(ks, wave)
+        ps, lp, _ = pe.admit_logits(ps, wave)
+        _logits_close(lk, lp, list(range(len(wave))))
+        ps = pe.sample_first(ps, lp, sid)
+        ks = ke.sample_first(ks, lk, sid)._replace(tokens=ps.tokens.clone(),
+                                                  done=ps.done.clone())
+        admits += 1
+        for _ in range(5):
+            ks, lk = ke.decode_logits(ks)
+            ps, lp = pe.decode_logits(ps)
+            live = (ps.table.active & ~ps.done).nonzero()[:, 0].tolist()
+            _logits_close(lk, lp, live)
+            kernel_steps += any(len(g) for g, _ in ke.last_split.values())
+            ks, ps = ke.sample(ks, lk), pe.sample(ps, lp)
+            ks = ks._replace(tokens=ps.tokens.clone(), done=ps.done.clone())
+            for a, b in zip(_serve_int_state(ks), _serve_int_state(ps)):
+                assert torch.equal(a, b)
+        ks = ke.release_finished(ks._replace(done=ks.done | ks.table.active))
+        ps = pe.release_finished(ps._replace(done=ps.done | ps.table.active))
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches - flash0 \
+        == cfg.n_layers * admits
+    assert paged_ops.paged_attention.launches - paged0 \
+        == cfg.n_layers * kernel_steps
+    assert kernel_steps == 10     # wave 2 has kernel lanes beside others
+
+
+@pytest.mark.gpu
+def test_engine_contract_lanes_beside_active_lanes_on_card(monkeypatch):
+    """A MoE config whose decode capacity overflows (8 experts, top-2, 8
+    lanes: 4 rows an expert; a zero router ties every expert, so every
+    token takes experts 0 and 1): a lane finished at a page boundary and
+    five slots never admitted go through the plain sub-batch, the two
+    active lanes through the paged kernel. Every lane's expert choices are
+    the plain path's, so the overflow drops the same choices, and the
+    active lanes' logits agree with the plain path's."""
+    dev = _cuda()
+    cfg, model = _serve_model("mixtral-8x22b", dev, n_experts=8)
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.moe.router.zero_()
+    ecfg = engine.EngineConfig(max_seqs=8, page_size=16, n_pages=64,
+                               max_len=64)
+    ke = engine.Engine(cfg, model, ecfg, kernels=True)
+    pe = engine.Engine(cfg, model, ecfg, kernels=False)
+    prompts = [p for p in _serve_prompts(2, 3, cfg.vocab)]
+    prompts[1] = np.arange(2, 18, dtype=np.int32)   # 16 tokens: one page
+    st = pe.admit(pe.init_state(), prompts)
+    st = st._replace(done=torch.tensor([False, True] + [True] * 6,
+                                       device=dev))
+    routes = {}
+    orig = moe.top_k_choices
+
+    def record(probs, k):
+        out = orig(probs, k)
+        routes.setdefault(record.tag, []).append(out[1])
+        return out
+    monkeypatch.setattr(moe, "top_k_choices", record)
+    record.tag = "k"
+    paged0 = paged_ops.paged_attention.launches
+    moe0 = moe_ops.moe_gmm.launches
+    _, lk = ke.decode_logits(st)
+    record.tag = "p"
+    _, lp = pe.decode_logits(st)
+    torch.cuda.synchronize()
+    good, bad = ke.last_split[cfg.sliding_window]
+    assert list(good) == [0, 2] and list(bad) == [1, 3, 4, 5, 6, 7]
+    assert paged_ops.paged_attention.launches - paged0 == cfg.n_layers
+    assert moe_ops.moe_gmm.launches - moe0 == cfg.n_layers
+    for a, b in zip(routes["k"], routes["p"]):
+        assert torch.equal(a, b)
+    idx = routes["p"][0].reshape(-1)
+    assert int((idx == 0).sum()) > 4          # expert 0 overflows
+    _logits_close(lk, lp, [0, 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_moe_gmm_kernel_at_decode_capacity_on_card(dtype):
+    """C = 4 rows an expert (8 tokens, top-2, 8 experts, capacity factor
+    2), some buckets empty as routing leaves them."""
+    dev = _cuda()
+    rng = np.random.RandomState(3)
+    E, C, D, F = 8, 4, 128, 256
+    x = rng.randn(E, C, D).astype(np.float32)
+    x[3:5] = 0.0
+    ws = [rng.randn(*s).astype(np.float32) * s[1] ** -0.5
+          for s in ((E, D, F), (E, D, F), (E, F, D))]
+    x, wg, wi, wo = (_f(a, dtype, dev) for a in (x, *ws))
+    out = moe_ops.moe_gmm(x, wg, wi, wo)
+    plain = moe_gmm_ref(x, wg, wi, wo)
+    torch.cuda.synchronize()
+    _close(out, plain, LM_TOL[dtype], "C = 4")
+    assert not out[3:5].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_paged_kernel_over_a_table_after_release_on_card(dtype):
+    """Pages allocated, released and allocated again (``kvcache``): after
+    a release, a sequence's next pages and a new sequence's come from the
+    freed ids, so the tables hold page ids in no order; the kernel equals
+    its plain version on them."""
+    dev = _cuda()
+    ps, Hq, Hkv, D = 4, 4, 2, 32
+    meta = kvc.init_meta(40, dev)
+    table = kvc.init_seq_table(4, 12, dev)
+
+    def alloc(meta, table, seq, want, start, epoch):
+        seq = torch.tensor(seq, dtype=torch.int32, device=dev)
+        meta, pages, ok = kvc.alloc_pages(
+            meta, torch.tensor(want, dtype=torch.int32, device=dev), seq,
+            torch.tensor(epoch, dtype=torch.int32, device=dev))
+        assert bool(ok.all())
+        return meta, kvc.map_pages(table, seq, pages, torch.tensor(
+            start, dtype=torch.int32, device=dev))
+    meta, table = alloc(meta, table, [0, 1, 2, 3], [5, 9, 3, 7],
+                        [0, 0, 0, 0], 1)
+    meta, table = kvc.release_seqs(meta, table, torch.tensor(
+        [0, 3], dtype=torch.int32, device=dev))
+    meta, table = alloc(meta, table, [2], [2], [3], 2)     # pages 0, 1
+    meta, table = alloc(meta, table, [0, 3], [8, 3], [0, 0], 3)
+    pt = table.page_table
+    assert pt[2, :5].tolist() == [14, 15, 16, 0, 1]
+    assert pt[0, :8].tolist() == [2, 3, 4, 17, 18, 19, 20, 21]
+    kv_len = torch.tensor([30, 36, 18, 11], dtype=torch.int32, device=dev)
+    rng = np.random.RandomState(5)
+    q = _f(rng.randn(4, Hq, D).astype(np.float32), dtype, dev)
+    kp = _f(rng.randn(41, ps, Hkv, D).astype(np.float32), dtype, dev)
+    vp = _f(rng.randn(41, ps, Hkv, D).astype(np.float32), dtype, dev)
+    for window in (None, 9):
+        out = paged_ops.paged_attention(q, kp, vp, pt, kv_len, window=window)
+        plain = paged_attention_ref(q, kp, vp, pt, kv_len, window=window)
+        torch.cuda.synchronize()
+        _close(out, plain, LM_TOL[dtype], f"window {window}")
+
+
+@pytest.mark.gpu
+def test_missing_kernel_library_raises_on_the_serve_path(monkeypatch):
+    """With no library loaded and none to be built, the wrappers and the
+    model's path on the card raise; nothing falls back to the plain
+    version."""
+    dev = _cuda()
+    cfg, model = _serve_model("mixtral-8x22b", dev)
+
+    def no_build(names=_build.KERNELS):
+        raise RuntimeError("no kernel library")
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "build_all", no_build)
+    tok = torch.randint(2, cfg.vocab, (2, 8), device=dev)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        transformer.forward_hidden(cfg, model, tok)
+    x = torch.zeros(4, 2, 128, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(4, 128, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        moe_ops.moe_gmm(x, w, w, w.transpose(1, 2).contiguous())
+    eng = engine.Engine(cfg, model, engine.EngineConfig(n_pages=32,
+                                                        max_len=64))
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        eng.admit(eng.init_state(), _serve_prompts(3, 2, cfg.vocab))
+    plain = engine.Engine(cfg, model, engine.EngineConfig(n_pages=32,
+                                                          max_len=64),
+                          kernels=False)
+    st = plain.admit(plain.init_state(), _serve_prompts(3, 2, cfg.vocab))
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        eng.decode_step(st)

@@ -7,10 +7,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, reduced
 from repro_torch.core import gc
 from repro_torch.core.tsoracle import VectorOracle
 from repro_torch.db import tpcc
 from repro_torch.kernels import _build
+from repro_torch.models import api
+from repro_torch.serve import engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -51,6 +54,19 @@ def test_entry_points_refuse_to_run_on_the_cpu_silently(monkeypatch):
         tpcc.make_journal(cfg, oracle, capacity_rounds=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         gc.init_log(2, oracle.n_slots)
+
+
+def test_serve_entry_points_refuse_the_cpu_silently(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_arch("granite-3-8b"))
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.build(cfg).init(gen)
+    model = api.build(cfg).init(gen, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.Engine(cfg, model, engine.EngineConfig())
+    eng = engine.Engine(cfg, model, engine.EngineConfig(), device="cpu")
+    assert eng.init_state().tokens.device.type == "cpu"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
