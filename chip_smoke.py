@@ -6,7 +6,7 @@ against their plain PyTorch versions.
                           [--seed 0] [--profile-rounds 4] [--lm-reps 20]
                           [--durable-rounds 8] [--shards 4]
                           [--shard-rounds 8] [--oracle-rounds 32]
-                          (phase 12, the LM serve path, takes --seed)
+                          (phases 12-13, the LM models, take --seed)
 
 Phases, each fatal on failure:
 
@@ -140,8 +140,10 @@ Phases, each fatal on failure:
    every sub-round's outcomes and the payloads must equal the vector
    oracle's (the headers differ by design). Each oracle's round medians,
    kernel path and plain, and two profiled rounds (launches and host
-   synchronisations a round, which must not exceed the vector oracle's)
-   are printed, and the naive counter beside its capacity. (b) Phase 10's
+   synchronisations a round: the runtime's synchronising calls, which
+   every copy the host waits for ends in, must not exceed the vector
+   oracle's) are printed, and the naive counter beside its capacity. (b)
+   Phase 10's
    deployment on its loaded pool under ``CompressedVectorOracle(60 S,
    threads_per_server=60)``, the vector replicated (S slots): ``--shard-
    rounds`` journalled mix rounds with a GC sweep every 2 rounds over the
@@ -188,7 +190,38 @@ Phases, each fatal on failure:
    median decode step, decoded tokens/s, and over a profiled admission and
    4 profiled steps the host syncs a step, the idle share and each
    kernel's device time a call beside the mean bound of the same calls
-   (recorded in a replay of that admission and those steps).
+   (recorded in a replay of that admission and those steps);
+13. the recurrent and hybrid models through ``Model.prefill`` /
+   ``decode_step`` (phase 12's model freed first), 4 prompts of 1,000
+   tokens each (not a multiple of the scan's 64-step chunk), then 16
+   greedy decode steps. (a) jamba-v0.1-52b at full width, one unit of 8
+   of its 32 layers (7 mamba, attention at 3, MoE at the odd positions;
+   26 GB of bf16 weights from ``--seed``): the kernel path and the plain
+   path (``kernels=False``) in lockstep on one model, both fed the plain
+   path's greedy tokens, the plain path's MoE layers replaying the kernel
+   path's expert choices (so the two differ by the kernels' arithmetic
+   alone). ``flash_attention`` must launch once and
+   ``mamba_scan`` once a mamba layer (7) a prefill, ``moe_gmm`` once a
+   MoE layer a prefill and a step; the first and last call of each
+   kernel in the prefill and every step must match its plain version
+   (the scan's y and last state within ``MAMBA_TOL`` of float32);
+   ``kv_len`` equal; the first layer's conv state bit-identical; every
+   layer's conv state, SSM state and K/V and every row of logits within
+   a relative RMS difference of ``JAMBA_RRMS`` (0.03, 0.05, 0.015 and
+   0.03); the plain router's own other choices first at a margin of at
+   most 0.02 and, over a prefill, a share of at most 0.4; greedy tokens
+   equal where the margin tests them (every prompt position and every
+   step, at least one a prompt). Both paths then run the traffic
+   alone, timed (prefill ms, the median decode step, idle share, host
+   syncs), with each kernel's device time a call beside its bound. (b)
+   xlstm-350m at full width and depth in bf16 (no kernel serves mLSTM or
+   sLSTM: none may launch), timed the same way; then one unit (an mLSTM
+   and an sLSTM layer) in float32 on the card and on the CPU with the same
+   weights and tokens: the logits and every cache leaf within a relative
+   RMS difference of 1e-4 after the prefill of the prompts' first 128
+   tokens and every step after it, and of 1e-3 over the whole prompts
+   (float32 itself drifts from exact arithmetic as the sLSTM's sequence
+   grows: ``scripts/xlstm_unit_precision.py``).
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -243,7 +276,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data.pipeline import make_prompts  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the FP32 rate
@@ -1227,13 +1260,26 @@ def mamba_case(label, gen, dev, B, S, Di, N, *, dtype=torch.bfloat16,
         A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
                                        device=dev)).repeat(Di, 1)
     D_skip = torch.ones(Di, dtype=torch.float32, device=dev)
+    args = (dt, x, Bm, Cm, A_log, D_skip)
+    flops, n_bytes, exps = scan_work(args)
+    return LMCase(label, "mamba_scan", args, {}, kernel_kw=kw, flops=flops,
+                  flop_rate=F32_FLOPS, n_bytes=n_bytes, exps=exps, reps=reps,
+                  plain_reps=2, note=mamba_launch_note(B, Di, **kw))
+
+
+def scan_work(args, return_state=False):
+    """``(flops, bytes, exponentials)`` of a ``mamba_scan`` call: six flops
+    a state and three a channel each step, every input read and y (and
+    the last state) written once, one exponential a state each step and
+    one a (channel, state) for A."""
+    dt, x, Bm, Cm, A_log, D_skip = args
+    B, S, Di = x.shape
+    N = Bm.shape[2]
     n = B * S * Di
-    return LMCase(label, "mamba_scan", (dt, x, Bm, Cm, A_log, D_skip), {},
-                  kernel_kw=kw, flops=n * (6.0 * N + 3), flop_rate=F32_FLOPS,
-                  n_bytes=_nbytes(dt, x, Bm, Cm, A_log, D_skip)
-                  + n * x.element_size(),
-                  exps=float(n * N + Di * N), reps=reps, plain_reps=2,
-                  note=mamba_launch_note(B, Di, **kw))
+    return (n * (6.0 * N + 3),
+            _nbytes(*args) + n * x.element_size()
+            + (4 * B * Di * N if return_state else 0),
+            float(n * N + Di * N))
 
 
 def mamba_launch_note(B, Di, bd=None, **_):
@@ -2610,7 +2656,10 @@ SERVE_MARGIN = 4.0
 SERVE_KERNELS = ("flash_attention", "paged_attention", "moe_gmm")
 # each serve kernel's functions as the trace names them
 SERVE_TRACE = {"flash_attention": "flash_", "paged_attention": "paged_",
-               "moe_gmm": "gmm_"}
+               "moe_gmm": "gmm_", "mamba_scan": "scan_kernel<"}
+# each LM kernel's ops module
+LM_OPS = {"flash_attention": flash_ops, "paged_attention": paged_ops,
+          "moe_gmm": moe_ops, "mamba_scan": mamba_ops}
 SERVE_PROFILE_STEPS = 4
 
 
@@ -2704,16 +2753,18 @@ def dispatch_rank(idx, capacity_factor, E):
 
 
 def dispatch_firsts(cfg, shadow, capacity_factor, rows, prior, held,
-                    share_limit, res, what):
+                    share_limit, res, what, carried=True,
+                    tie=SERVE_ROUTER_TIE):
     """Each token's first MoE layer at which its dispatch differs between
     the two engines (another expert, or another side of a capacity), host
     int [rows, T // rows], ``n_layers`` where none. ``prior`` host int
     [rows]: the lowest first layer among each row's tokens already in the
     pool; ``held`` host bool [rows, T // rows]: the tokens gated (prompt
     positions, live lanes). Each held token's first difference is held to
-    ``SERVE_ROUTER_TIE`` (``SERVE_ROUTER_TIE_AFTER`` where an earlier token
-    of its row differed at a lower layer) or ``SERVE_EDGE_RANKS``, and
-    their share to ``share_limit``."""
+    ``tie`` (``SERVE_ROUTER_TIE_AFTER`` where an earlier token
+    of its row differed at a lower layer, unless ``carried`` is False: the
+    plain path replayed the kernel path's choices, so none carries over)
+    or ``SERVE_EDGE_RANKS``, and their share to ``share_limit``."""
     rk, rp = shadow.routes["k"], shadow.routes["p"]
     check(len(rk) == len(rp), f"{what}: MoE layers {len(rk)} != {len(rp)}")
     per = []                      # per layer: differs, chose, margin, edge
@@ -2739,7 +2790,7 @@ def dispatch_firsts(cfg, shadow, capacity_factor, rows, prior, held,
     # the lowest first layer of each token's earlier tokens in its row
     before = np.minimum.accumulate(
         np.concatenate([prior[:, None], first[:, :-1]], axis=1), axis=1)
-    after = (before < first).reshape(-1)
+    after = (before < first).reshape(-1) & carried
     f = first.reshape(-1)
     on = held.reshape(-1) & (f < L)
     t = np.flatnonzero(on)
@@ -2756,14 +2807,13 @@ def dispatch_firsts(cfg, shadow, capacity_factor, rows, prior, held,
     res["edge_n"] += int((~flip).sum())
     hg = gap[:, held.reshape(-1)]
     res["gaps"] += hg.size
-    res["gaps_under"] += int((hg <= SERVE_ROUTER_TIE).sum())
-    over = flip & (m > np.where(after[t], SERVE_ROUTER_TIE_AFTER,
-                                SERVE_ROUTER_TIE))
+    res["gaps_under"] += int((hg <= tie).sum())
+    over = flip & (m > np.where(after[t], SERVE_ROUTER_TIE_AFTER, tie))
     check(not over.any(), f"{what}: tokens {t[over].tolist()[:8]} first "
                           f"take another expert where the plain router's "
-                          f"margin is {m[over].tolist()[:8]} (limits "
-                          f"{SERVE_ROUTER_TIE}, {SERVE_ROUTER_TIE_AFTER} "
-                          f"after an earlier token)")
+                          f"margin is {m[over].tolist()[:8]} (limits {tie}, "
+                          f"{SERVE_ROUTER_TIE_AFTER} after an earlier "
+                          f"token)")
     over = ~flip & (e > SERVE_EDGE_RANKS)
     check(not over.any(), f"{what}: tokens {t[over].tolist()[:8]} first "
                           f"change sides of a capacity {e[over].tolist()[:8]}"
@@ -2777,61 +2827,86 @@ def dispatch_firsts(cfg, shadow, capacity_factor, rows, prior, held,
 
 
 def serve_call_work(name, args, kw):
-    """``(flops, bytes)`` the function of one serve call must do and move,
-    as phase 8 counts them."""
+    """``(bytes, seconds)``: what the function of one serve or model call
+    must move, and its operations at the peak rate of their type, as
+    phase 8 counts them (the scan's flops at ``F32_FLOPS``, or its
+    exponentials at ``EXP_PER_S`` where they take longer; the others' at
+    ``BF16_FLOPS``)."""
     if name == "flash_attention":
         q, k, v = args
         B, S, Hq, D = q.shape
         pairs = flash_pairs(S, S, kw["causal"], kw["window"])
-        return 4.0 * D * pairs * B * Hq, 2 * _nbytes(q) + _nbytes(k, v)
+        return (2 * _nbytes(q) + _nbytes(k, v),
+                4.0 * D * pairs * B * Hq / BF16_FLOPS)
     if name == "paged_attention":
         q, k_pool, _, pt, kl = args
         n_keys, n_rows, n_entries = paged_work(q, k_pool, pt, kl,
                                                kw["window"])
         row_bytes = k_pool.shape[2] * k_pool.shape[3] * k_pool.element_size()
-        return (4.0 * q.shape[2] * q.shape[1] * n_keys,
-                2 * _nbytes(q) + 2 * n_rows * row_bytes + 4 * n_entries
-                + _nbytes(kl))
+        return (2 * _nbytes(q) + 2 * n_rows * row_bytes + 4 * n_entries
+                + _nbytes(kl),
+                4.0 * q.shape[2] * q.shape[1] * n_keys / BF16_FLOPS)
+    if name == "mamba_scan":
+        flops, n_bytes, exps = scan_work(args, kw.get("return_state", False))
+        return n_bytes, max(flops / F32_FLOPS, exps / EXP_PER_S)
     x, wg, wi, wo = args
     E, C, D = x.shape
-    return 2.0 * E * C * D * wi.shape[2] * 3, \
-        2 * _nbytes(x) + _nbytes(wg, wi, wo)
+    return (2 * _nbytes(x) + _nbytes(wg, wi, wo),
+            2.0 * E * C * D * wi.shape[2] * 3 / BF16_FLOPS)
 
 
-def serve_bound(flops, n_bytes):
-    terms = {"bytes": n_bytes / HBM_BYTES_PER_S,
-             "operations": flops / BF16_FLOPS}
+def serve_bound(n_bytes, op_seconds):
+    """``(bound ms, bound by)`` of :func:`serve_call_work`'s terms."""
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S, "operations": op_seconds}
     by = max(terms, key=terms.get)
     return terms[by] * 1e3, by
 
 
+# the names of a kernel's outputs where it returns more than one
+OUTPUTS = {"mamba_scan": ("y", "h_last")}
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def check_serve_calls(shadow, res, what):
-    """Each recorded kernel call against its plain version, in the inputs'
-    dtype (``tolerance.TOL``) and on float32 copies of its inputs
-    (``F32_PLAIN_RTOL``, ``F32_PLAIN_ATOL_RMS``)."""
+    """Each recorded kernel call's outputs (the scan's y and last state)
+    against its plain version's, in the output's dtype (``tolerance.TOL``)
+    and on float32 copies of its inputs (``F32_PLAIN_RTOL``,
+    ``F32_PLAIN_ATOL_RMS``); one plain version is alive at a time."""
     shadow.tag = None
+
+    def tol(name, o):
+        return tolerance.TOL[name][str(o.dtype).split(".")[-1]]
+
+    def held32(o, p):
+        atol = tolerance.F32_PLAIN_ATOL_RMS * rms(p)
+        return (*held_to(o, p, atol, tolerance.F32_PLAIN_RTOL), atol)
     for name, (first, last) in shadow.calls.items():
         plain_fn = LM_PLAIN[name]
+        names = OUTPUTS.get(name, ("out",))
         for args, kw, out in ((first,) if first is last else (first, last)):
-            tol = tolerance.TOL[name][str(out.dtype).split(".")[-1]]
-            abs_err, rel_err, ok = held_to(out, plain_fn(*args, **kw), tol,
-                                           tol)
-            plain32 = plain_fn(*[a.float() if a.is_floating_point() else a
-                                 for a in args], **kw)
-            atol32 = tolerance.F32_PLAIN_ATOL_RMS * rms(plain32)
-            abs32, rel32, ok32 = held_to(out, plain32, atol32,
-                                         tolerance.F32_PLAIN_RTOL)
-            del plain32
-            check(ok and ok32, f"{what}: {name} differs from its plain "
-                               f"version (max abs {abs_err}, rel {rel_err}; "
-                               f"float32 plain max abs {abs32}, rel {rel32}"
-                               f", atol {atol32:.3g})")
-            e = res["calls"].setdefault(name, dict(
-                checked=0, max_abs_err=0.0, max_abs_err_f32_plain=0.0))
+            outs = as_tuple(out)
+            errs = [held_to(o, p, tol(name, o), tol(name, o)) for o, p in
+                    zip(outs, as_tuple(plain_fn(*args, **kw)))]
+            errs32 = [held32(o, p) for o, p in zip(outs, as_tuple(plain_fn(
+                *[a.float() if a.is_floating_point() else a for a in args],
+                **kw)))]
+            e = res["calls"].setdefault(name, dict(checked=0))
             e["checked"] += 1
-            e["max_abs_err"] = max(e["max_abs_err"], abs_err)
-            e["max_abs_err_f32_plain"] = max(e["max_abs_err_f32_plain"],
-                                             abs32)
+            for j, ((abs_err, rel_err, ok),
+                    (abs32, rel32, ok32, atol32)) in enumerate(
+                        zip(errs, errs32)):
+                check(ok and ok32, f"{what}: {name}'s {names[j]} differs "
+                                   f"from its plain version (max abs "
+                                   f"{abs_err}, rel {rel_err}; float32 "
+                                   f"plain max abs {abs32}, rel {rel32}, "
+                                   f"atol {atol32:.3g})")
+                sfx = f"_{names[j]}" if j else ""
+                for key, v in ((f"max_abs_err{sfx}", abs_err),
+                               (f"max_abs_err_f32_plain{sfx}", abs32)):
+                    e[key] = max(e.get(key, 0.0), v)
     torch.cuda.empty_cache()
 
 
@@ -2899,20 +2974,18 @@ def margin_gate(lk, lp, rows, reqs, res, what):
     res["positions"] += len(rows)
 
 
-def rrms_gate(lk, lp, clean, res, what):
+def rrms_gate(lk, lp, clean, res, what, limit=SERVE_LOGIT_RRMS):
     """The relative RMS of the logits' difference over the rows ``clean``
-    (whose token's MoE dispatch was the plain path's); fails where there
-    are none."""
+    (whose token's MoE dispatch was the plain path's) at most ``limit``;
+    fails where there are none."""
     res["rows"] += len(clean)
     check(len(clean) > 0, f"{what}: every row of logits was dispatched "
                           f"otherwise than on the plain path")
     d = lk[clean].float() - lp[clean].float()
     rrms = rms(d) / rms(lp[clean])
     res["rrms"] = max(res["rrms"], rrms)
-    check(rrms <= SERVE_LOGIT_RRMS, f"{what}: logits' relative RMS "
-                                    f"difference {rrms:.4g} > "
-                                    f"{SERVE_LOGIT_RRMS} over the rows "
-                                    f"{clean}")
+    check(rrms <= limit, f"{what}: logits' relative RMS difference "
+                         f"{rrms:.4g} > {limit} over the rows {clean}")
 
 
 def prompt_margins(cfg, model, shadow, lens, reqs, res, what):
@@ -3062,11 +3135,12 @@ def serve_lockstep(cfg, model, prompts):
     return res
 
 
-def call_bounds(fn):
-    """Run ``fn()`` with each serve kernel's wrapper recording the bound of
-    every call's work; returns ``{name: [(bound ms, bound by), ...]}``."""
-    out = {n: [] for n in SERVE_KERNELS}
-    mods = dict(zip(SERVE_KERNELS, (flash_ops, paged_ops, moe_ops)))
+def call_bounds(fn, names=SERVE_KERNELS):
+    """Run ``fn()`` with the wrappers of the kernels ``names`` recording
+    the bound of every call's work; returns ``{name: [(bound ms, bound
+    by), ...]}``."""
+    out = {n: [] for n in names}
+    mods = {n: LM_OPS[n] for n in names}
     orig = {n: getattr(m, n) for n, m in mods.items()}
 
     def wrap(name):
@@ -3131,8 +3205,8 @@ def serve_timed(cfg, model, prompts, kernels):
     del box
     torch.cuda.empty_cache()
     return dict(prefill_ms=prefill, step_ms=steps, tokens=n_tokens,
-                admit_profile=admit_prof, admit_calls=admit_calls,
-                admit_bounds=admit_bounds, decode_profile=dec,
+                prefill_profile=admit_prof, prefill_calls=admit_calls,
+                prefill_bounds=admit_bounds, decode_profile=dec,
                 decode_calls=dec_calls, decode_bounds=decode_bounds)
 
 
@@ -3142,6 +3216,38 @@ def per_call_us(profile, calls, name):
     rows = profile[2]
     t = sum(t for k, t, _ in rows if SERVE_TRACE[name] in k)
     return t / calls[name] if calls[name] else None
+
+
+def record_kernel_times(label, t, names, recs, phase8, smi):
+    """Each kernel of ``names`` in the prefill and the decode profile of
+    ``t`` (:func:`serve_timed`'s or :func:`model_timed`'s): its device
+    time a call and the mean bound of the same calls (as many as were
+    profiled), into ``recs[name]``; a line each, beside phase 8's case."""
+    for name in names:
+        for where in ("prefill", "decode"):
+            prof, calls = t[f"{where}_profile"], t[f"{where}_calls"]
+            us = None if prof is None else per_call_us(prof, calls, name)
+            if us is None:
+                continue
+            b = t[f"{where}_bounds"][name]
+            check(len(b) == calls[name], f"{label}: {name} in {where}: "
+                                         f"{len(b)} calls bounded, "
+                                         f"{calls[name]} profiled")
+            b_ms = sum(ms for ms, _ in b) / len(b)
+            by = [w for _, w in b]
+            b_by = max(set(by), key=by.count)
+            recs[name].update({f"{where}_ms": us / 1e3,
+                               f"{where}_calls_profiled": calls[name],
+                               f"{where}_bound_ms": b_ms,
+                               f"{where}_bound_by": b_by})
+            p8 = phase8.get(name)
+            print(f"{label}: {name} in {where}: {us / 1e3:.4f} ms a call "
+                  f"(device, {calls[name]} calls), bound {b_ms:.4f} ms "
+                  f"({b_by}), the mean over the same calls, "
+                  f"{100 * b_ms / (us / 1e3):.1f} % of it"
+                  + (f"; phase 8 {p8['case']}: {p8['ms']:.4f} ms, bound "
+                     f"{p8['bound_ms']:.4f} ms" if p8 else "")
+                  + f" | {smi}", flush=True)
 
 
 def run_serve_phase(args, dev, smi, lm_records):
@@ -3220,7 +3326,7 @@ def run_serve_phase(args, dev, smi, lm_records):
             syncs = {k: v / SERVE_PROFILE_STEPS
                      for k, v in t["decode_profile"][3].items()}
             wall, busy = t["decode_profile"][:2]
-            awall, abusy = t["admit_profile"][:2]
+            awall, abusy = t["prefill_profile"][:2]
             print(f"serve {arch}, {label}: prefill "
                   f"{[round(x, 3) for x in t['prefill_ms']]} ms per wave; "
                   f"decode step median {steps.median():.3f} ms (min "
@@ -3236,42 +3342,469 @@ def run_serve_phase(args, dev, smi, lm_records):
                       f"step, {n / per:6.1f}x  {key[:70]}")
             if not kernels:
                 continue
-            for name in SERVE_KERNELS:
-                for where, prof, calls, bounds in (
-                        ("prefill", t["admit_profile"], t["admit_calls"],
-                         t["admit_bounds"]),
-                        ("decode", t["decode_profile"], t["decode_calls"],
-                         t["decode_bounds"])):
-                    us = per_call_us(prof, calls, name)
-                    if us is None:
-                        continue
-                    rec = out[name][arch]
-                    rec[f"{where}_ms"] = us / 1e3
-                    rec[f"{where}_calls_profiled"] = calls[name]
-                    line = f"serve {arch}: {name} in {where}: {us / 1e3:.4f}"\
-                           f" ms a call (device, {calls[name]} calls)"
-                    b = bounds[name]
-                    check(len(b) == calls[name],
-                          f"serve {arch}: {name} in {where}: {len(b)} calls "
-                          f"bounded, {calls[name]} profiled")
-                    b_ms = sum(ms for ms, _ in b) / len(b)
-                    by = [w for _, w in b]
-                    b_by = max(set(by), key=by.count)
-                    rec.update({f"{where}_bound_ms": b_ms,
-                                f"{where}_bound_by": b_by})
-                    line += f", bound {b_ms:.4f} ms ({b_by}), the mean " \
-                            f"over the same calls"
-                    p8 = phase8.get(name)
-                    if p8:
-                        line += f"; phase 8 {p8['case']}: {p8['ms']:.4f} " \
-                                f"ms, bound {p8['bound_ms']:.4f} ms"
-                    print(line + f" | {smi}")
+            record_kernel_times(f"serve {arch}", t, SERVE_KERNELS,
+                                {n: out[n][arch] for n in SERVE_KERNELS},
+                                phase8, smi)
         print(f"serve {arch}: max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase "
               f"{time.perf_counter() - t0:.2f} s | {smi}", flush=True)
         del model
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------- the recurrent models ----
+# phase 13's traffic: B prompts of PROMPT tokens (not a multiple of the
+# scan's 64-step chunk, so its pad path runs), then STEPS greedy decode
+# steps through Model.prefill / decode_step
+RECURRENT_B, RECURRENT_PROMPT, RECURRENT_STEPS = 4, 1000, 16
+# jamba's depth cut to one pattern unit (7 mamba layers, attention at 3,
+# MoE at the odd positions): 26 GB of bf16 weights (32 layers: 104 GB)
+JAMBA_LAYERS = 8
+# the plain path replays the kernel path's expert choices, so the two
+# differ by the kernels' arithmetic alone: every row of logits and every
+# layer's state and K/V is held, to a relative RMS difference of at most
+# JAMBA_RRMS, about twice the largest of seeds 0 and 1 on the card
+# (logits 0.0156, conv 0.0142, SSM 0.0267, K/V 0.00726;
+# scripts/jamba_lockstep_seeds.py, PERF.md §6). The
+# plain router's own other choices change nothing downstream then; they
+# are held to JAMBA_ROUTER_TIE (about twice 0.00966) and, over a
+# prefill's 4,000 tokens, to SERVE_DIVERTED_ADMIT; a step's 4 lanes are
+# counted, not bounded.
+JAMBA_RRMS = {"logits": 0.03, "mamba.conv": 0.03, "mamba.ssm": 0.05,
+              "attn": 0.015}
+JAMBA_ROUTER_TIE = 0.02
+RECURRENT_KERNELS = ("flash_attention", "moe_gmm", "mamba_scan")
+# one xlstm unit in float32, the card against the CPU: relative RMS of the
+# logits and every cache leaf, after prompts of the traffic's first 128
+# tokens and after its whole prompts. float32 itself drifts from exact
+# arithmetic as the sLSTM's sequence grows: on the CPU, float32 against
+# float64 reaches 5.5e-6 (sLSTM c) at 128 tokens and 1.1e-4 at 1,000, a
+# bfloat16 run 0.047 and 0.35 (scripts/xlstm_unit_precision.py, PERF.md
+# §6). Each limit sits between the two readings of its length.
+XLSTM_UNIT_RRMS = {128: 1e-4, RECURRENT_PROMPT: 1e-3}
+RECURRENT_PROFILE_STEPS = 4
+
+
+class ModelShadow(ServeShadow):
+    """:class:`ServeShadow` over ``Model.prefill`` / ``decode_step``: the
+    first and last call of each of ``RECURRENT_KERNELS`` (tag "k"), every
+    MoE layer's routes and the prefill's final hidden states (either
+    tag). Each MoE layer of the plain path (tag "p") takes the expert
+    choices of the kernel path's same call, weighted by its own router's
+    probabilities; ``routes["p"]`` keeps the choices its router made."""
+
+    SITES = ((flash_ops, "flash_attention"), (moe_ops, "moe_gmm"),
+             (mamba_ops, "mamba_scan"), (moe_mod, "top_k_choices"),
+             (transformer, "forward_hidden"))
+
+    def _wrap(self, name):
+        call = super()._wrap(name)
+        if name != "top_k_choices":
+            return call
+
+        def replay(probs, k):
+            vals, idx = call(probs, k)
+            if self.tag != "p":
+                return vals, idx
+            idx = self.routes["k"][len(self.routes["p"]) - 1][1]
+            return probs.gather(-1, idx), idx
+        return replay
+
+
+def lm_launches():
+    """The launches of ``RECURRENT_KERNELS``, read from the wrappers'
+    counters (which a shadow's wrapping leaves in place)."""
+    return {n: LM_OPS[n]._COUNTER.launches for n in RECURRENT_KERNELS}
+
+
+def state_leaves(slot, kind):
+    """``{name: tensor}`` of a cache slot's state (K/V [B, S, Hkv, Dh] for
+    attention)."""
+    if kind == "attn":
+        return {"k": slot.k, "v": slot.v}
+    st = getattr(slot, kind)
+    return {f"{kind}.{f}": getattr(st, f) for f in st._fields}
+
+
+def check_model_states(cfg, ck, cp, res, what):
+    """Each layer's cache on the kernel path against the plain path's:
+    every value finite, the first layer's conv state bit for bit (it
+    precedes every kernel), every leaf within a relative RMS difference
+    of ``JAMBA_RRMS`` of its kind."""
+    for i, (layer, sk, sp) in enumerate(zip(
+            [s.kind for s in layer_specs(cfg)], ck.slots, cp.slots)):
+        for name, a in state_leaves(sk, layer).items():
+            b = state_leaves(sp, layer)[name]
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"{what}: layer {i}'s {name} is not finite")
+            if i == 0 and name == "mamba.conv":
+                check(torch.equal(a, b), f"{what}: the first layer's conv "
+                                         f"state differs")
+            key = "attn" if layer == "attn" else name
+            rr = rms(a.float() - b.float()) / max(rms(b), 1e-30)
+            res["states"][key] = max(res["states"].get(key, 0.0), rr)
+            res["held"][key] = res["held"].get(key, 0) + 1
+            check(rr <= JAMBA_RRMS[key], f"{what}: layer {i}'s {name}: "
+                                         f"relative RMS difference "
+                                         f"{rr:.4g} > {JAMBA_RRMS[key]}")
+
+
+def layer_specs(cfg):
+    """The layer specs of ``cfg`` in execution order."""
+    unit = cfg.unit()
+    return [unit[i % len(unit)] for i in range(cfg.n_layers)]
+
+
+def moe_layers(cfg):
+    """The number of ``cfg``'s MoE layers."""
+    return sum(s.mlp == "moe" for s in layer_specs(cfg))
+
+
+def held_rrms(lk, lp, res, what):
+    """:func:`rrms_gate` over every row at ``JAMBA_RRMS["logits"]``,
+    noting where the largest difference was."""
+    before = res["rrms"]
+    rrms_gate(lk, lp, list(range(lk.shape[0])), res, what,
+              JAMBA_RRMS["logits"])
+    if res["rrms"] > before:
+        res["rrms_at"] = what
+
+
+def recurrent_lockstep(cfg, model, tokens):
+    """The jamba gates: the kernel path (``kernels=True``) and the plain
+    path of ``Model.prefill`` and ``decode_step`` in lockstep on one
+    model, both fed the plain path's greedy tokens, the plain path's MoE
+    layers on the kernel path's expert choices (:class:`ModelShadow`).
+    Each kernel's first and last call of the prefill and of every step
+    against its plain version (the scan's y and last state within
+    ``MAMBA_TOL``); the launches as counted; ``kv_len`` equal; every
+    layer's cache and every row of logits within ``JAMBA_RRMS``; the
+    plain router's own other choices bounded (:func:`dispatch_firsts`);
+    greedy tokens where the margin tests them, at every prompt position
+    too."""
+    m = api.build(cfg)
+    B, S = tokens.shape
+    max_len = S + RECURRENT_STEPS + 1
+    res = dict(admits=0, steps=0, rrms=0.0, tested={}, calls={}, rows=0,
+               positions=0, diverged_tokens=0, tie=0.0, tie_n=0,
+               tie_after=0.0, tie_after_n=0, edge=-1, edge_n=0, share=0.0,
+               gaps=0, gaps_under=0, states={}, held={}, rrms_at="")
+    Lm = moe_layers(cfg)
+    reqs = list(range(B))
+    reset_launch_counts()
+    with ModelShadow() as shadow:
+        shadow.step("k")
+        hk, ck = m.prefill(model, {"tokens": tokens}, max_len, kernels=True)
+        shadow.step("p")
+        hp, cp = m.prefill(model, {"tokens": tokens}, max_len, kernels=False)
+        shadow.tag = None
+        what = f"{cfg.name} prefill"
+        kinds = [s.kind for s in layer_specs(cfg)]
+        want = {"flash_attention": kinds.count("attn"), "moe_gmm": Lm,
+                "mamba_scan": kinds.count("mamba")}
+        got = lm_launches()
+        check(got == want, f"{what}: launches {got}, expected {want}")
+        res["prefill_launches"] = got
+        check(set(shadow.calls) == set(RECURRENT_KERNELS),
+              f"{what}: kernel calls recorded {sorted(shadow.calls)}")
+        f = dispatch_firsts(cfg, shadow, cfg.capacity_factor, B,
+                            np.full(B, Lm), np.ones((B, S), bool),
+                            SERVE_DIVERTED_ADMIT, res, what, carried=False,
+                            tie=JAMBA_ROUTER_TIE)
+        res["diverged_tokens"] += int((f < Lm).sum())
+        check_serve_calls(shadow, res, what)
+        prompt_margins(cfg, model, shadow, [S] * B, reqs, res, what)
+        same(ck.kv_len, cp.kv_len, f"{what}: kv_len")
+        check_model_states(cfg, ck, cp, res, what)
+        lk, lp = (transformer.lm_head(h, model.embed, cfg.logit_softcap)
+                  for h in (hk, hp))
+        held_rrms(lk, lp, res, what)
+        res["admits"] += 1
+        tok = lp.argmax(dim=-1).to(torch.int32)
+        for step in range(RECURRENT_STEPS):
+            what = f"{cfg.name} step {step + 1}"
+            before = lm_launches()
+            shadow.step("k")
+            lk, ck = m.decode_step(model, ck, tok, kernels=True)
+            shadow.step("p")
+            lp, cp = m.decode_step(model, cp, tok, kernels=False)
+            shadow.tag = None
+            got = {n: c - before[n] for n, c in lm_launches().items()}
+            want = {"flash_attention": 0, "moe_gmm": Lm, "mamba_scan": 0}
+            check(got == want, f"{what}: launches {got}, expected {want}")
+            fs = dispatch_firsts(cfg, shadow, max(2.0, cfg.capacity_factor),
+                                 B, np.full(B, Lm), np.ones((B, 1), bool),
+                                 1.0, res, what, carried=False,
+                                 tie=JAMBA_ROUTER_TIE)
+            res["diverged_tokens"] += int((fs < Lm).sum())
+            check_serve_calls(shadow, res, what)
+            same(ck.kv_len, cp.kv_len, f"{what}: kv_len")
+            check_model_states(cfg, ck, cp, res, what)
+            margin_gate(lk, lp, reqs, reqs, res, what)
+            held_rrms(lk, lp, res, what)
+            tok = lp.argmax(dim=-1).to(torch.int32)
+            res["steps"] += 1
+    res["launches"] = lm_launches()
+    del ck, cp
+    torch.cuda.empty_cache()
+    return res
+
+
+def model_timed(cfg, model, tokens, kernels, names=(),
+                profile_prefill=True):
+    """The traffic through ``Model.prefill`` / ``decode_step`` alone: the
+    prefill's ms twice (the first a warm-up) and each decode step's ms
+    (host clock, synchronised); then a prefill (unless
+    ``profile_prefill`` is False) and ``RECURRENT_PROFILE_STEPS`` steps
+    under the profiler, and once more with the bound of each call of the
+    kernels ``names`` recorded."""
+    m = api.build(cfg)
+    B, S = tokens.shape
+    max_len = S + RECURRENT_STEPS + 1
+    batch = {"tokens": tokens}
+    prefill, steps = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, cache = m.prefill(model, batch, max_len, kernels=kernels)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - t0) * 1e3)
+    tok = transformer.lm_head(h, model.embed, cfg.logit_softcap) \
+        .argmax(dim=-1).to(torch.int32)
+    for _ in range(RECURRENT_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = m.decode_step(model, cache, tok, kernels=kernels)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    box = {}
+
+    def pre():
+        box["cache"] = m.prefill(model, batch, max_len, kernels=kernels)[1]
+
+    def dec():
+        for _ in range(RECURRENT_PROFILE_STEPS):
+            box["cache"] = m.decode_step(model, box["cache"], tok,
+                                         kernels=kernels)[1]
+    reset_launch_counts()
+    if profile_prefill:
+        pre_prof = profiled(pre)
+    else:
+        pre()
+        pre_prof = None
+    pre_calls = launch_counts()
+    reset_launch_counts()
+    dec_prof = profiled(dec)
+    dec_calls = launch_counts()
+    pre_bounds = call_bounds(pre, names) if names else {}
+    dec_bounds = call_bounds(dec, names) if names else {}
+    del box, cache
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill, step_ms=steps, prefill_profile=pre_prof,
+                prefill_calls=pre_calls, prefill_bounds=pre_bounds,
+                decode_profile=dec_prof, decode_calls=dec_calls,
+                decode_bounds=dec_bounds)
+
+
+def print_model_times(label, t, smi):
+    """Print :func:`model_timed`'s times and the top of its profiles;
+    returns the median decode step's ms."""
+    steps = torch.tensor(t["step_ms"], dtype=torch.float64)
+    wall, busy = t["decode_profile"][:2]
+    syncs = {k: v / RECURRENT_PROFILE_STEPS
+             for k, v in t["decode_profile"][3].items()}
+    pre = ""
+    if t["prefill_profile"] is not None:
+        pwall, pbusy = t["prefill_profile"][:2]
+        pre = f" (prefill: {1 - pbusy / pwall:.4f})"
+    print(f"{label}: prefill {[round(x, 3) for x in t['prefill_ms']]} ms "
+          f"(the first a warm-up); decode step median {steps.median():.3f} "
+          f"ms (min {steps.min():.3f}, max {steps.max():.3f}, {len(steps)} "
+          f"steps); host syncs a step {syncs}; idle share over "
+          f"{RECURRENT_PROFILE_STEPS} profiled steps {1 - busy / wall:.4f}"
+          f"{pre} | {smi}", flush=True)
+    for where in ("prefill", "decode"):
+        if t[f"{where}_profile"] is None:
+            continue
+        n = 1 if where == "prefill" else RECURRENT_PROFILE_STEPS
+        for key, t_us, c in t[f"{where}_profile"][2][:5]:
+            print(f"  {where}, {label}: {t_us / 1e3 / n:8.3f} ms a "
+                  f"{'prefill' if n == 1 else 'step'}, {c / n:7.1f}x  "
+                  f"{key[:70]}")
+    return float(steps.median())
+
+
+def recurrent_tokens(seed, vocab, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (RECURRENT_B, RECURRENT_PROMPT),
+                         generator=gen, device=dev, dtype=torch.int32)
+
+
+def run_jamba(args, dev, smi, phase8):
+    """Phase 13 (a): jamba-v0.1-52b at full width, one unit deep."""
+    full = get_arch("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = api.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(args.seed + 13), device=dev)
+    tokens = recurrent_tokens(args.seed + 13, cfg.vocab, dev)
+    n_weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {JAMBA_LAYERS} of {full.n_layers} layers "
+          f"{[f'{s.kind}/{s.mlp}' for s in layer_specs(cfg)]}, "
+          f"weights {n_weights / 1e9:.3f} GB (bf16, random from the seed), "
+          f"{RECURRENT_B} prompts of {RECURRENT_PROMPT} tokens, "
+          f"{RECURRENT_STEPS} steps", flush=True)
+    res = recurrent_lockstep(cfg, model, tokens)
+    check(res["calls"].get("mamba_scan", {}).get("checked", 0) >= 2,
+          f"{cfg.name}: the prefill's scan calls were not checked")
+    short = [r for r in range(RECURRENT_B) if res["tested"].get(r, 0) < 1]
+    check(not short, f"{cfg.name}: prompts {short} have no position whose "
+                     f"margin tests the greedy token")
+    print(f"{cfg.name} lockstep: prefill launches "
+          f"{res['prefill_launches']}, then {moe_layers(cfg)} "
+          f"moe_gmm a step ({res['steps']} steps), totals "
+          f"{res['launches']} = expected; kv_len equal; kernel calls "
+          f"against their plain versions {res['calls']}; the first "
+          f"layer's conv state bit-identical; on the kernel path's expert "
+          f"choices, every state and K/V held: relative RMS difference "
+          f"max {res['states']} over {res['held']} layer checks (limits "
+          f"{JAMBA_RRMS}); logits' relative RMS difference "
+          f"max {res['rrms']:.4g} (at {res['rrms_at']}, limit "
+          f"{JAMBA_RRMS['logits']}) over {res['rows']} rows; greedy tokens "
+          f"equal at "
+          f"{sum(res['tested'].values())} of {res['positions']} positions "
+          f"the margin tests (per prompt "
+          f"{[res['tested'].get(r, 0) for r in range(RECURRENT_B)]}); "
+          f"the plain router chose otherwise for {res['diverged_tokens']} "
+          f"tokens (at most {res['share']:.4g} of a prefill's or a step's; "
+          f"{res['tie_n']} at a margin of at most {res['tie']:.4g}, limit "
+          f"{JAMBA_ROUTER_TIE}, "
+          f"{res['edge_n']} at most {res['edge']} ranks from a capacity's "
+          f"edge) | {smi}",
+          flush=True)
+    out = {}
+    for kernels in (True, False):
+        label = f"{cfg.name}, {'kernels' if kernels else 'plain'}"
+        t = model_timed(cfg, model, tokens, kernels,
+                        RECURRENT_KERNELS if kernels else ())
+        med = print_model_times(label, t, smi)
+        key = "kernels" if kernels else "plain"
+        out[f"{key}_prefill_ms"] = t["prefill_ms"][-1]
+        out[f"{key}_step_ms"] = med
+        if kernels:
+            recs = {n: out.setdefault(n, dict(launches=res["launches"][n]))
+                    for n in RECURRENT_KERNELS}
+            record_kernel_times(cfg.name, t, RECURRENT_KERNELS, recs, phase8,
+                                smi)
+    print(f"{cfg.name}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB | {smi}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_rms(a, b):
+    return rms(a.float().cpu() - b.float().cpu()) / max(rms(b.float().cpu()),
+                                                        1e-30)
+
+
+def run_xlstm(args, dev, smi):
+    """Phase 13 (b): xlstm-350m, full width and depth, plain (no kernel
+    serves mLSTM or sLSTM), timed; then one unit in float32 on the card
+    against the CPU on the same weights and tokens."""
+    cfg = get_arch("xlstm-350m")
+    model = api.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(args.seed + 14), device=dev)
+    tokens = recurrent_tokens(args.seed + 14, cfg.vocab, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, {n_params / 1e6:.1f} M "
+          f"parameters (bf16, random from the seed), {RECURRENT_B} prompts "
+          f"of {RECURRENT_PROMPT} tokens, {RECURRENT_STEPS} steps",
+          flush=True)
+    t = model_timed(cfg, model, tokens, True, profile_prefill=False)
+    counts = [t["prefill_calls"], t["decode_calls"]]
+    check(not any(v for c in counts for v in c.values()),
+          f"{cfg.name}: a kernel launched on a path without one: {counts}")
+    out = dict(prefill_ms=t["prefill_ms"][-1],
+               step_ms=print_model_times(f"{cfg.name}, plain", t, smi))
+    del model
+    torch.cuda.empty_cache()
+    # one unit, float32, the card against the CPU
+    unit = dataclasses.replace(cfg, n_layers=cfg.unit_len, dtype="float32")
+    m = api.build(unit)
+    card = m.init(torch.Generator(device=dev).manual_seed(args.seed + 15),
+                  device=dev)
+    cpu = transformer.Transformer(unit, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    out["unit_f32_rrms"] = {}
+    for n_tok, limit in XLSTM_UNIT_RRMS.items():
+        t0 = time.perf_counter()
+        worst = unit_against_cpu(unit, card, cpu, tokens[:, :n_tok], limit)
+        print(f"{cfg.name}, one unit (mLSTM + sLSTM) in float32, the card "
+              f"against the CPU ({RECURRENT_B} prompts of {n_tok} tokens, "
+              f"{RECURRENT_STEPS} steps, {time.perf_counter() - t0:.2f} s): "
+              f"relative RMS difference at most "
+              f"{({k: float(f'{v:.3g}') for k, v in worst.items()})} "
+              f"(limit {limit}) | {smi}", flush=True)
+        out["unit_f32_rrms"][n_tok] = worst
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def unit_against_cpu(unit, card, cpu, tokens, limit):
+    """``tokens`` through ``Model.prefill`` and ``RECURRENT_STEPS`` decode
+    steps of one float32 unit on the card and its copy on the CPU, each fed
+    the CPU's greedy tokens: the logits and every cache leaf after the
+    prefill and every step within a relative RMS difference of ``limit``.
+    Returns the largest of each."""
+    m = api.build(unit)
+    dev = card.embed.device
+    worst = {}
+
+    def hold(a, b, what):
+        rr = rel_rms(a, b)
+        worst[what] = max(worst.get(what, 0.0), rr)
+        check(rr <= limit, f"{unit.name} unit, float32, card against the "
+                           f"CPU, prompts of {tokens.shape[1]}: {what}: "
+                           f"relative RMS difference {rr:.3g} > {limit}")
+
+    def caches(cg, cc, what):
+        same(cg.kv_len.cpu(), cc.kv_len, f"{what}: kv_len")
+        for i, (s, kind) in enumerate(zip(
+                cg.slots, [s.kind for s in layer_specs(unit)])):
+            sc = cc.slots[i]
+            for name, a in state_leaves(s, kind).items():
+                hold(a, state_leaves(sc, kind)[name], name)
+
+    max_len = tokens.shape[1] + RECURRENT_STEPS + 1
+    hg, cg = m.prefill(card, {"tokens": tokens}, max_len)
+    hc, cc = m.prefill(cpu, {"tokens": tokens.cpu()}, max_len)
+    caches(cg, cc, "prefill")
+    tok = transformer.lm_head(hc, cpu.embed, unit.logit_softcap) \
+        .argmax(dim=-1).to(torch.int32)
+    hold(transformer.lm_head(hg, card.embed, unit.logit_softcap),
+         transformer.lm_head(hc, cpu.embed, unit.logit_softcap), "logits")
+    for step in range(RECURRENT_STEPS):
+        lg, cg = m.decode_step(card, cg, tok.to(dev))
+        lc, cc = m.decode_step(cpu, cc, tok)
+        hold(lg, lc, "logits")
+        caches(cg, cc, f"step {step + 1}")
+        tok = lc.argmax(dim=-1).to(torch.int32)
+    return worst
+
+
+@torch.no_grad()
+def run_recurrent_phase(args, dev, smi, lm_records):
+    """Phase 13: the recurrent and hybrid models through ``Model.prefill``
+    / ``decode_step``. Returns jamba's record of each of
+    ``RECURRENT_KERNELS`` and the timings of both models."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    jamba = run_jamba(args, dev, smi, {r["name"]: r for r in lm_records})
+    xlstm = run_xlstm(args, dev, smi)
+    return jamba, xlstm
 
 
 # -------------------------------------------------------------- main ----
@@ -3650,15 +4183,30 @@ def main(argv=None):
     t0 = time.perf_counter()
     del st_load
     torch.cuda.empty_cache()
-    lm = [k for k in kernels if k["name"] in SERVE_KERNELS]
+    lm = [k for k in kernels if k["name"] in LM_PLAIN]
     serve = run_serve_phase(args, dev, smi, lm)
     for k in lm:
+        if k["name"] not in serve:
+            continue
         by_cfg = serve[k["name"]]
         k["launches_by_path"] = {
             "ops_entry": k["launches"],
             "serve": sum(r["launches"] for r in by_cfg.values())}
         k["serve"] = by_cfg
     print(f"serve phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 13. the recurrent and hybrid models ------------------------------
+    t0 = time.perf_counter()
+    jamba, xlstm = run_recurrent_phase(args, dev, smi, lm)
+    for k in kernels:
+        rec = jamba.get(k["name"])
+        if rec is None:
+            continue
+        by_path = k.setdefault("launches_by_path",
+                               {"ops_entry": k["launches"]})
+        by_path["serve"] = by_path.get("serve", 0) + rec["launches"]
+        k.setdefault("serve", {})["jamba-v0.1-52b"] = rec
+    print(f"recurrent phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB; {time.perf_counter() - t_start:.2f} s in all")

@@ -29,7 +29,12 @@ are viewed as ``torch.bfloat16`` on the other side.
 reference's ``init_params`` tree (numpy leaves, stacked over pattern units
 on a leading axis: ``u{p}/attn/wq[u]`` becomes ``layers.{u·unit_len +
 p}.attn.wq``), and ``lm_params_to_numpy`` gives the tree back (bfloat16
-leaves as float32, exactly).
+leaves as float32, exactly); leaves the reference keeps in float32 (norm
+scales, the router, the recurrent layers' gates and SSM constants) stay
+float32. ``decode_cache_from_numpy`` and ``decode_cache_to_numpy`` carry
+a ``DecodeCache`` across the same way: the reference's slot of each
+pattern-unit position, its K/V or recurrent state stacked over units, ↔
+the port's one slot a layer.
 """
 from __future__ import annotations
 
@@ -42,7 +47,9 @@ from repro_torch.core import gc, hashtable as ht, mvcc, rangeindex as ri, \
 from repro_torch.core.tsoracle import GlobalCounterState, \
     NaiveAdapterState, VectorState
 from repro_torch.db.tpcc import TPCCState
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.blocks import LayerCacheSlot
+from repro_torch.models.recurrent import MambaCache, MLSTMCache, SLSTMCache
+from repro_torch.models.transformer import DecodeCache, Transformer
 
 # fields that hold uint32 words in the reference
 U32_FIELDS = frozenset({"cur_hdr", "old_hdr", "ovf_hdr", "vec", "keys",
@@ -202,3 +209,54 @@ def _stack_units(node):
     if all(isinstance(k, int) for k in node):
         return np.stack([node[u] for u in sorted(node)])
     return {k: _stack_units(v) for k, v in node.items()}
+
+
+# the recurrent state of each LayerCacheSlot field that holds one
+_STATES = {"mamba": MambaCache, "mlstm": MLSTMCache, "slstm": SLSTMCache}
+
+
+def _unused(v):
+    """A slot field's ``()`` placeholder."""
+    return isinstance(v, tuple) and not v
+
+
+def decode_cache_from_numpy(cfg, cache, device="cpu") -> DecodeCache:
+    """The reference's ``DecodeCache`` with numpy leaves (each unit
+    position's slot stacked over units; ``()`` where a slot holds
+    nothing) as the port's, one slot a layer in execution order."""
+    ul = cfg.unit_len
+
+    def field(v, f, u):
+        if _unused(v):
+            return ()
+        if f in _STATES:
+            return _STATES[f](*(tensor_from_numpy(np.asarray(a)[u], device)
+                                for a in v))
+        return tensor_from_numpy(np.asarray(v)[u], device)
+
+    slots = tuple(LayerCacheSlot(**{
+        f: field(getattr(cache.slots[i % ul], f), f, i // ul)
+        for f in LayerCacheSlot._fields}) for i in range(cfg.n_layers))
+    return DecodeCache(slots=slots,
+                       kv_len=tensor_from_numpy(cache.kv_len, device))
+
+
+def decode_cache_to_numpy(cfg, cache: DecodeCache) -> DecodeCache:
+    """The port's ``DecodeCache`` in the reference's layout: a slot a
+    unit position, each leaf stacked over units, numpy leaves (bfloat16
+    as float32)."""
+    ul = cfg.unit_len
+
+    def stack(vs, f):
+        if _unused(vs[0]):
+            return ()
+        if f in _STATES:
+            return _STATES[f](*(np.stack([tensor_to_numpy(getattr(v, g))
+                                          for v in vs])
+                                for g in _STATES[f]._fields))
+        return np.stack([tensor_to_numpy(v) for v in vs])
+
+    slots = tuple(LayerCacheSlot(**{
+        f: stack([getattr(s, f) for s in cache.slots[p::ul]], f)
+        for f in LayerCacheSlot._fields}) for p in range(ul))
+    return DecodeCache(slots=slots, kv_len=tensor_to_numpy(cache.kv_len))

@@ -1,7 +1,9 @@
 // Selective scan (Mamba SSM): per channel d and state n,
 //   a = exp(dt · -exp(A_log[d, n])),  b = dt · x · B[n],
 //   h ← a ⊙ h + b,                    y = Σ_n h · C[n] + D_skip[d] · x,
-// with h starting at zero and carried across the whole sequence.
+// with h starting at zero and carried across the whole sequence. Given
+// h_last, each lane also writes its states after the last step there (the
+// state a decode cache carries on from).
 //
 // Replaces the TPU kernel src/repro/kernels/mamba_scan/kernel.py:mamba_scan
 // (body _scan_kernel). As there, a and b never reach device memory and
@@ -60,7 +62,8 @@ __global__ void __launch_bounds__(MAX_THREADS) scan_kernel(
     const T* __restrict__ dt, const T* __restrict__ x,
     const T* __restrict__ Bm, const T* __restrict__ Cm,
     const float* __restrict__ A_log, const float* __restrict__ D_skip,
-    T* __restrict__ y, int S, int Di, int chunk) {
+    T* __restrict__ y, float* __restrict__ h_last, int S, int Di,
+    int chunk) {
   constexpr int NPL = N / LPS;                 // states a lane
   constexpr int EPC = 16 / (int)sizeof(T);     // elements a 16-byte copy
   constexpr int VB = NPL < 8 ? NPL : 8;        // B, C values read at once
@@ -216,12 +219,18 @@ __global__ void __launch_bounds__(MAX_THREADS) scan_kernel(
   }
   __syncthreads();
   if (n_chunks > 0) store_y(n_chunks - 1);
+  // the padded steps (dt = 0: a = 1, b = 0) left h as step S did
+  if (h_last != nullptr && live) {
+    float* hl = h_last + ((int64_t)b * Di + d) * N + n0;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) hl[j] = h[j];
+  }
 }
 
 template <typename T, int N>
 int launch(const void* dt, const void* x, const void* Bm, const void* Cm,
-           const void* A_log, const void* D_skip, void* y, int B, int S,
-           int Di, int bd, int chunk, cudaStream_t s) {
+           const void* A_log, const void* D_skip, void* y, void* h_last,
+           int B, int S, int Di, int bd, int chunk, cudaStream_t s) {
   auto kern = scan_kernel<T, N>;
   const int smem = (NSTG * 2 * chunk * (bd + N) + 2 * chunk * bd) *
                        (int)sizeof(T) +
@@ -232,23 +241,25 @@ int launch(const void* dt, const void* x, const void* Bm, const void* Cm,
   const dim3 grid((unsigned)((Di + bd - 1) / bd), (unsigned)B);
   kern<<<grid, bd * LPS, smem, s>>>(
       (const T*)dt, (const T*)x, (const T*)Bm, (const T*)Cm,
-      (const float*)A_log, (const float*)D_skip, (T*)y, S, Di, chunk);
+      (const float*)A_log, (const float*)D_skip, (T*)y, (float*)h_last, S,
+      Di, chunk);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int by_state(int N, const void* dt, const void* x, const void* Bm,
              const void* Cm, const void* A_log, const void* D_skip, void* y,
-             int B, int S, int Di, int bd, int chunk, cudaStream_t s) {
+             void* h_last, int B, int S, int Di, int bd, int chunk,
+             cudaStream_t s) {
   switch (N) {
-    case 8: return launch<T, 8>(dt, x, Bm, Cm, A_log, D_skip, y, B, S, Di,
-                                bd, chunk, s);
-    case 16: return launch<T, 16>(dt, x, Bm, Cm, A_log, D_skip, y, B, S, Di,
-                                  bd, chunk, s);
-    case 32: return launch<T, 32>(dt, x, Bm, Cm, A_log, D_skip, y, B, S, Di,
-                                  bd, chunk, s);
-    case 64: return launch<T, 64>(dt, x, Bm, Cm, A_log, D_skip, y, B, S, Di,
-                                  bd, chunk, s);
+    case 8: return launch<T, 8>(dt, x, Bm, Cm, A_log, D_skip, y, h_last, B,
+                                S, Di, bd, chunk, s);
+    case 16: return launch<T, 16>(dt, x, Bm, Cm, A_log, D_skip, y, h_last,
+                                  B, S, Di, bd, chunk, s);
+    case 32: return launch<T, 32>(dt, x, Bm, Cm, A_log, D_skip, y, h_last,
+                                  B, S, Di, bd, chunk, s);
+    case 64: return launch<T, 64>(dt, x, Bm, Cm, A_log, D_skip, y, h_last,
+                                  B, S, Di, bd, chunk, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -257,23 +268,24 @@ int by_state(int N, const void* dt, const void* x, const void* Bm,
 
 // dt, x [B, S, Di]; Bm, Cm [B, S, N] in one dtype (0 = float32,
 // 1 = bfloat16); A_log float32 [Di, N]; D_skip float32 [Di]; y [B, S, Di] in
-// that dtype. N is 8, 16, 32 or 64; S a multiple of chunk; Di a multiple of
-// 16 bytes' elements; every pointer 16-byte aligned. bd channels a block,
-// two lanes a channel: 2·bd a multiple of 32 and at most 256.
+// that dtype; h_last null or float32 [B, Di, N]. N is 8, 16, 32 or 64; S a
+// multiple of chunk; Di a multiple of 16 bytes' elements; every pointer
+// 16-byte aligned. bd channels a block, two lanes a channel: 2·bd a
+// multiple of 32 and at most 256.
 extern "C" int mamba_scan_launch(const void* dt, const void* x, const void* Bm,
                                  const void* Cm, const void* A_log,
-                                 const void* D_skip, void* y, int dtype, int B,
-                                 int S, int Di, int N, int bd, int chunk,
-                                 void* stream) {
+                                 const void* D_skip, void* y, void* h_last,
+                                 int dtype, int B, int S, int Di, int N,
+                                 int bd, int chunk, void* stream) {
   if (B == 0 || S == 0 || Di == 0) return (int)cudaGetLastError();
   if (bd * LPS > MAX_THREADS || (bd * LPS) % 32 || chunk < 1 || S % chunk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == lm::DTYPE_F32)
-    return by_state<float>(N, dt, x, Bm, Cm, A_log, D_skip, y, B, S, Di, bd,
-                           chunk, s);
+    return by_state<float>(N, dt, x, Bm, Cm, A_log, D_skip, y, h_last, B, S,
+                           Di, bd, chunk, s);
   if (dtype == lm::DTYPE_BF16)
-    return by_state<__nv_bfloat16>(N, dt, x, Bm, Cm, A_log, D_skip, y, B, S,
-                                   Di, bd, chunk, s);
+    return by_state<__nv_bfloat16>(N, dt, x, Bm, Cm, A_log, D_skip, y,
+                                   h_last, B, S, Di, bd, chunk, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,11 @@ state at 0 and out of y), S with zero steps up to a multiple of the staged
 chunk (dt = 0 there, so a = 1 and b = 0: the state is left as it is), and
 Di with zero channels up to whole 16-byte copies (their y is dropped). The
 functions below give the launch arithmetic the kernel computes.
+
+With ``return_state`` the kernel also writes each channel's float32 state
+after its last step, the state a decode cache carries on from; the padded
+steps leave it as it was after step S, and the wrapper drops the padded
+channels' and states' entries.
 """
 from __future__ import annotations
 
@@ -21,9 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan import ref
 
-_ARGTYPES = [_cuda.P] * 7 + [_cuda.I] * 7
+_ARGTYPES = [_cuda.P] * 8 + [_cuda.I] * 7
 MAX_STATE = 64
 STATES = (8, 16, 32, 64)    # the kernel's state counts
 LANES = 2                   # lanes that share a channel's states
@@ -77,10 +82,12 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def prepare(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64):
+def prepare(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64,
+            return_state=False):
     """Validate CUDA inputs of :func:`mamba_scan`, pad states, steps and
-    channels as the module says and allocate the output; returns a
-    function that launches the kernel and returns ``y [B, S, Di]``."""
+    channels as the module says and allocate the outputs; returns a
+    function that launches the kernel and returns ``y [B, S, Di]`` (with
+    ``return_state``, ``(y, h_last [B, Di, N])``)."""
     dev, code = _cuda.float_device("mamba_scan", x)
     _cuda.check("mamba_scan", dev, x.dtype, dt=dt, x=x, Bm=Bm, Cm=Cm)
     _cuda.check("mamba_scan", dev, torch.float32, A_log=A_log, D_skip=D_skip)
@@ -97,7 +104,9 @@ def prepare(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64):
             f"(N ≤ {MAX_STATE}), bd {bd}, chunk {chunk}")
     if B * S * Di == 0:
         y = torch.empty_like(x)
-        return lambda: y
+        out = (y, torch.zeros((B, Di, N), dtype=torch.float32,
+                              device=dev)) if return_state else y
+        return lambda: out
     item = x.element_size()
     bd = block_channels(bd, Di, item)
     chunk = chunk_steps(chunk, N, bd, item)
@@ -112,17 +121,27 @@ def prepare(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64):
         A_log = F.pad(A_log, (0, Nw - N, 0, pad_d))
     dt, x, Bm, Cm = (_aligned(t) for t in (dt, x, Bm, Cm))
     y = torch.empty_like(x)
+    out = y[:, :S, :Di]
+    h_ptr = None
+    if return_state:
+        h_last = torch.empty((B, Di + pad_d, Nw), dtype=torch.float32,
+                             device=dev)
+        h_ptr = h_last.data_ptr()
+        out = (out, h_last[:, :Di, :N])
     args = (dt.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            A_log.data_ptr(), D_skip.data_ptr(), y.data_ptr(), code, B,
-            S + pad_s, Di + pad_d, Nw, bd, chunk)
+            A_log.data_ptr(), D_skip.data_ptr(), y.data_ptr(), h_ptr, code,
+            B, S + pad_s, Di + pad_d, Nw, bd, chunk)
     return functools.partial(
         _cuda.launch, _COUNTER, _cuda.entry("mamba_scan", _ARGTYPES), args,
-        dev, (dt, x, Bm, Cm, A_log, D_skip), y[:, :S, :Di])
+        dev, (dt, x, Bm, Cm, A_log, D_skip), out)
 
 
-def mamba_scan(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64):
+def mamba_scan(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64,
+               return_state=False):
     """dt, x: [B, S, Di]; Bm, Cm: [B, S, N] (one dtype); A_log: [Di, N]
-    and D_skip: [Di], float32. Returns y: [B, S, Di] in x's dtype.
+    and D_skip: [Di], float32. Returns y: [B, S, Di] in x's dtype; with
+    ``return_state``, ``(y, h_last)``, h_last [B, Di, N] the float32 state
+    after the last step (zero for S = 0).
 
     Two lanes share a channel's states, ``bd`` channels make a block
     (:func:`block_channels`) and ``chunk`` steps are staged at a time
@@ -132,8 +151,10 @@ def mamba_scan(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64):
     warp a scheduler) and than four (more of a step's work besides the
     states): PERF.md §6."""
     if x.device.type == "cpu":
-        return mamba_scan_ref(dt, x, Bm, Cm, A_log, D_skip)
-    return prepare(dt, x, Bm, Cm, A_log, D_skip, bd=bd, chunk=chunk)()
+        return ref.mamba_scan_ref(dt, x, Bm, Cm, A_log, D_skip,
+                                  return_state=return_state)
+    return prepare(dt, x, Bm, Cm, A_log, D_skip, bd=bd, chunk=chunk,
+                   return_state=return_state)()
 
 
 mamba_scan.launches = 0

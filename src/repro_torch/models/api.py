@@ -25,11 +25,13 @@ class Model:
         the CPU is asked for)."""
         return transformer.init_params(self.cfg, generator, device, dtype)
 
-    def prefill(self, params, batch, max_len: int):
-        return transformer.prefill(self.cfg, params, batch, max_len)
+    def prefill(self, params, batch, max_len: int, kernels=True):
+        return transformer.prefill(self.cfg, params, batch, max_len,
+                                   kernels)
 
-    def decode_step(self, params, cache, token):
-        return transformer.decode_step(self.cfg, params, cache, token)
+    def decode_step(self, params, cache, token, kernels=True):
+        return transformer.decode_step(self.cfg, params, cache, token,
+                                       kernels)
 
 
 def build(cfg: ArchConfig) -> Model:

@@ -1,21 +1,24 @@
-"""Per-layer blocks (``repro/models/blocks.py``): GQA attention and MLPs,
-as ``nn.Module``s whose parameter names are the reference's leaf names, and
-the reference's functions over them.
+"""Per-layer blocks (``repro/models/blocks.py``): GQA attention, MLPs and
+the layer over them (attention, mamba, mLSTM or sLSTM, then an MLP, a MoE
+or neither), as ``nn.Module``s whose parameter names are the reference's
+leaf names, and the reference's functions over them.
 
 Parameter layout (a state-dict key ``layers.{i}.attn.wq`` is the
 reference's ``u{p}/attn/wq[u]`` for layer ``i = u·unit_len + p``):
   wq [D, Hq*Dh]   wk/wv [D, Hkv*Dh]   wo [Hq*Dh, D]
   mlp: w_gate/w_in [D, F], w_out [F, D]   (sq_relu: no w_gate)
   moe: router [D, E], w_gate/w_in [E, D, F], w_out [E, F, D]
+  mamba, mlstm, slstm: ``models/recurrent.py``
 
-Only attention layers are ported. The mamba, mLSTM and sLSTM layer kinds,
-cross-attention and ``kv_override`` wait for slice F2 (the recurrent,
-hybrid and encoder-decoder serve paths) and raise ``NotImplementedError``.
+Cross-attention and ``kv_override`` wait for slice F2b (the
+encoder-decoder path) and raise ``NotImplementedError``.
 
 On the card, :func:`attn_forward` over the positions ``0..S-1`` of every
 row (``positions=None``), causal, with no ``prefix_len``, runs the
-``flash_attention`` kernel; every other call runs the plain
-``chunked_attention``. ``kernels=False`` keeps the card on the plain path.
+``flash_attention`` kernel, a mamba layer's prefill the ``mamba_scan``
+kernel and a MoE layer's experts the ``moe_gmm`` kernel; every other call
+runs the plain versions. ``kernels=False`` keeps the card on the plain
+path.
 """
 from __future__ import annotations
 
@@ -26,11 +29,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models import common
+from repro_torch.models import common, recurrent
 from repro_torch.models.moe import MoE, apply_moe
-
-_LATER = ("the {} layer kind waits for slice F2 (the recurrent and hybrid "
-          "serve path)")
 
 
 def _param(shape, dtype, device):
@@ -68,7 +68,7 @@ def attn_forward(p, x, positions, cfg: ArchConfig, *, window, causal=True,
     kernel."""
     if kv_override is not None:
         raise NotImplementedError("cross-attention (kv_override) waits for "
-                                  "slice F2 (the encoder-decoder path)")
+                                  "slice F2b (the encoder-decoder path)")
     B, S, D = x.shape
     Dh = cfg.d_head
     arange = positions is None
@@ -145,20 +145,29 @@ def mlp_forward(p, x, cfg: ArchConfig):
 
 # --------------------------------------------------------- one layer ------
 class Layer(nn.Module):
-    """One decoder layer: ``ln1``, ``attn``, and ``ln2`` with ``mlp`` or
-    ``moe`` (neither when ``spec.mlp == "none"``). The norm scales start at
-    zero, as the reference's; the weights are drawn from ``generator``
-    when one is given."""
+    """One decoder layer: ``ln1``; ``attn``, ``mamba``, ``mlstm`` or
+    ``slstm`` by ``spec.kind``; and ``ln2`` with ``mlp`` or ``moe``
+    (neither when ``spec.mlp == "none"``). The norm scales start at zero,
+    as the reference's; the weights are drawn from ``generator`` when one
+    is given."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device=None,
                  generator=None):
         super().__init__()
-        if spec.kind != "attn":
-            raise NotImplementedError(_LATER.format(spec.kind))
         self.spec = spec
         D = cfg.d_model
         self.ln1 = nn.Parameter(torch.zeros(D, device=device))
-        self.attn = Attention(cfg, dtype, device, generator)
+        if spec.kind == "attn":
+            self.attn = Attention(cfg, dtype, device, generator)
+        elif spec.kind == "mamba":
+            self.mamba = recurrent.Mamba(D, dtype=dtype, device=device,
+                                         generator=generator)
+        elif spec.kind == "mlstm":
+            self.mlstm = recurrent.MLSTM(D, cfg.n_heads, dtype, device,
+                                         generator)
+        elif spec.kind == "slstm":
+            self.slstm = recurrent.SLSTM(D, cfg.n_heads, dtype, device,
+                                         generator)
         if spec.mlp != "none":
             self.ln2 = nn.Parameter(torch.zeros(D, device=device))
         if spec.mlp == "dense":
@@ -174,8 +183,9 @@ def init_layer(cfg: ArchConfig, spec: LayerSpec, dtype, *, generator,
 
 
 class LayerCacheSlot(NamedTuple):
-    """Decode-time cache of ONE layer. Unused fields are () placeholders
-    (the recurrent kinds' states wait for slice F2)."""
+    """Decode-time cache of ONE layer: K/V for attention, a
+    ``MambaCache``, ``MLSTMCache`` or ``SLSTMCache`` for the recurrent
+    kinds. Unused fields are () placeholders."""
     k: object = ()
     v: object = ()
     mamba: object = ()
@@ -197,30 +207,50 @@ def moe_block(p, x, cfg: ArchConfig, capacity_factor, kernels=True):
 def layer_forward(p, x, positions, cfg: ArchConfig, spec: LayerSpec, *,
                   prefix_len=None, causal=True, kernels=True):
     """Train/prefill forward of one layer. Returns (x, cache_slot)."""
-    if spec.kind != "attn":
-        raise NotImplementedError(_LATER.format(spec.kind))
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
-    y, (k, v) = attn_forward(p.attn, h, positions, cfg, window=spec.window,
-                             causal=causal, prefix_len=prefix_len,
-                             kernels=kernels)
+    slot = LayerCacheSlot()
+    if spec.kind == "attn":
+        y, (k, v) = attn_forward(p.attn, h, positions, cfg,
+                                 window=spec.window, causal=causal,
+                                 prefix_len=prefix_len, kernels=kernels)
+        slot = slot._replace(k=k, v=v)
+    elif spec.kind == "mamba":
+        y, mc = recurrent.apply_mamba(p.mamba, h, kernels=kernels)
+        slot = slot._replace(mamba=mc)
+    elif spec.kind == "mlstm":
+        y, mc = recurrent.apply_mlstm(p.mlstm, h, n_heads=cfg.n_heads)
+        slot = slot._replace(mlstm=mc)
+    else:
+        y, sc = recurrent.apply_slstm(p.slstm, h, n_heads=cfg.n_heads)
+        slot = slot._replace(slstm=sc)
     x = x + y
     if spec.mlp == "dense":
         x = x + mlp_forward(p.mlp, common.rms_norm(x, p.ln2, cfg.norm_eps),
                             cfg)
     elif spec.mlp == "moe":
         x = x + moe_block(p, x, cfg, cfg.capacity_factor, kernels)
-    return x, LayerCacheSlot(k=k, v=v)
+    return x, slot
 
 
 def layer_decode(p, x, cache: LayerCacheSlot, kv_len, cfg: ArchConfig,
                  spec: LayerSpec, *, kernels=True):
     """One-token decode of one layer. Returns (x, new_cache_slot)."""
-    if spec.kind != "attn":
-        raise NotImplementedError(_LATER.format(spec.kind))
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
-    y, (k, v) = attn_decode(p.attn, h, cache.k, cache.v, kv_len, cfg,
-                            window=spec.window)
-    cache = cache._replace(k=k, v=v)
+    if spec.kind == "attn":
+        y, (k, v) = attn_decode(p.attn, h, cache.k, cache.v, kv_len, cfg,
+                                window=spec.window)
+        cache = cache._replace(k=k, v=v)
+    elif spec.kind == "mamba":
+        y, mc = recurrent.apply_mamba(p.mamba, h, cache.mamba)
+        cache = cache._replace(mamba=mc)
+    elif spec.kind == "mlstm":
+        y, mc = recurrent.apply_mlstm(p.mlstm, h, cache.mlstm,
+                                      n_heads=cfg.n_heads, chunk=1)
+        cache = cache._replace(mlstm=mc)
+    else:
+        y, sc = recurrent.apply_slstm(p.slstm, h, cache.slstm,
+                                      n_heads=cfg.n_heads)
+        cache = cache._replace(slstm=sc)
     x = x + y
     if spec.mlp == "dense":
         x = x + mlp_forward(p.mlp, common.rms_norm(x, p.ln2, cfg.norm_eps),

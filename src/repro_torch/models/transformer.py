@@ -7,15 +7,17 @@ layers in execution order, layer ``u·unit_len + p`` being the reference's
 :class:`~repro_torch.models.blocks.LayerCacheSlot` a layer, in the same
 order.
 
-Entry points, for decoder-only configurations:
+Entry points, for decoder-only configurations (attention, hybrid and
+recurrent):
   init_params     → a :class:`Transformer` with random weights
-  forward_hidden  → final hidden states (and each layer's K/V)
+  forward_hidden  → final hidden states (and each layer's cache slot)
   prefill         → (last hidden, DecodeCache)
   decode_step     → one-token serve step against a DecodeCache
 
-``encode`` and the encoder-decoder and prefix-LM branches wait for slice
-F2; ``train_loss`` and ``chunked_cross_entropy`` wait for slice F3
-(training).
+``kernels=False`` keeps a CUDA call of ``forward_hidden``, ``prefill`` or
+``decode_step`` on the plain path. ``encode`` and the encoder-decoder and
+prefix-LM branches wait for slice F2b; ``train_loss`` and
+``chunked_cross_entropy`` wait for slice F3 (training).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ class Transformer(nn.Module):
         if cfg.is_encdec or cfg.is_prefix_lm:
             raise NotImplementedError(
                 f"{cfg.name}: the encoder-decoder and prefix-LM models wait "
-                f"for slice F2")
+                f"for slice F2b")
         dtype = dtype or cfg.param_dtype
         device = resolve_device(device)
         self.cfg = cfg
@@ -62,7 +64,8 @@ class Transformer(nn.Module):
 
 class DecodeCache(NamedTuple):
     """One LayerCacheSlot a layer, in execution order (K/V ``[B, S, Hkv,
-    Dh]``), and ``kv_len`` [B], the tokens already in the cache."""
+    Dh]`` for attention, the recurrent state for the other kinds), and
+    ``kv_len`` [B], the tokens already in the cache."""
     slots: tuple
     kv_len: torch.Tensor
     enc_kv: tuple = ()
@@ -111,30 +114,35 @@ def lm_head(h, embed, cap: Optional[float]):
 
 
 @torch.no_grad()
-def prefill(cfg: ArchConfig, params, batch, max_len: int):
-    """Run the prompt ``batch["tokens"]`` [B, S], build a DecodeCache
-    padded to ``max_len`` (at least S + 1). Returns (last hidden [B, D],
+def prefill(cfg: ArchConfig, params, batch, max_len: int, kernels=True):
+    """Run the prompt ``batch["tokens"]`` [B, S], build a DecodeCache whose
+    attention K/V are padded to ``max_len`` (at least S + 1); recurrent
+    slots carry their state as it is. Returns (last hidden [B, D],
     cache)."""
     tokens = batch["tokens"]
-    hidden, slots = forward_hidden(cfg, params, tokens, collect_cache=True)
+    hidden, slots = forward_hidden(cfg, params, tokens, collect_cache=True,
+                                   kernels=kernels)
     B, S = tokens.shape
     max_len = max(max_len, S + 1)
-    slots = tuple(s._replace(k=F.pad(s.k, (0, 0, 0, 0, 0, max_len - S)),
-                             v=F.pad(s.v, (0, 0, 0, 0, 0, max_len - S)))
-                  for s in slots)
+    pad = (0, 0, 0, 0, 0, max_len - S)
+    slots = tuple(s._replace(k=F.pad(s.k, pad), v=F.pad(s.v, pad))
+                  if layer.spec.kind == "attn" else s
+                  for s, layer in zip(slots, params.layers))
     kv_len = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return hidden[:, -1], DecodeCache(slots=slots, kv_len=kv_len)
 
 
 @torch.no_grad()
-def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token):
+def decode_step(cfg: ArchConfig, params, cache: DecodeCache, token,
+                kernels=True):
     """token [B] int32 → (logits [B, V] float32, new cache). One serve
-    step; the cache's K/V are written in place."""
+    step; the cache's K/V are written in place, the recurrent states
+    replaced."""
     x = common.embed_lookup(params.embed, token)[:, None, :]   # [B, 1, D]
     new_slots = []
     for layer, slot in zip(params.layers, cache.slots):
         x, slot = blocks.layer_decode(layer, x, slot, cache.kv_len, cfg,
-                                      layer.spec)
+                                      layer.spec, kernels=kernels)
         new_slots.append(slot)
     x = common.rms_norm(x, params.final_ln, cfg.norm_eps)
     logits = lm_head(x[:, 0], params.embed, cfg.logit_softcap)

@@ -6,7 +6,8 @@ externalised state (page meta, one page pool a layer, the sequence
 table). Page ids form ONE shared space: :class:`~repro_torch.serve.kvcache.
 PageMeta` governs allocation and every layer stores its K/V at the same
 ids. Single-host loop, greedy sampling, attention-pattern architectures
-only (the recurrent ones wait for slice F2).
+only, as the reference's: the recurrent and hybrid ones serve through
+``models/api`` (``Model.prefill`` / ``decode_step``).
 
 On the card (``kernels=True``) prefill attention is the ``flash_attention``
 kernel, the experts the ``moe_gmm`` kernel, and decode attention the
@@ -86,8 +87,8 @@ class Engine:
                  kernels: bool = True, device=None):
         unit = cfg.unit()
         if not all(s.kind == "attn" for s in unit):
-            raise ValueError("the paged engine serves attention archs; "
-                             "recurrent archs wait for slice F2")
+            raise ValueError("paged engine serves attention archs; SSM "
+                             "archs use models/api")
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"parameters on {params.embed.device}, engine "

@@ -14,7 +14,10 @@ that kernel and the reference's ``ref.py`` differ too.
 
 ``scan_model`` computes the selective scan as ``csrc/mamba_scan.cu`` does:
 ``a = 2^(dt·A₂)`` with log2(e) folded into ``A₂ = -exp(A_log)·log2(e)``,
-and dt·x in float32. It is held against the reference's ``mamba_scan_ref``.
+and dt·x in float32, and the last state the kernel writes on request. It
+is held against the reference's ``mamba_scan_ref`` and, for the state,
+the last state of the reference's ``linear_rnn`` over the same
+discretisation and the port's ``mamba_scan_ref(return_state=True)``.
 
 The inputs are made from seeds with numpy (``test_torch_gpu.py``'s case
 functions, whose card tests hold the kernels themselves).
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 from repro.kernels.mamba_scan.ref import mamba_scan_ref as jmamba_ref
+from repro.models.recurrent import linear_rnn as jlinear_rnn
 from repro.kernels.paged_attention.ops import paged_attention as jpaged
 from repro.kernels.paged_attention.ref import paged_attention_ref as \
     jpaged_ref
@@ -32,6 +36,7 @@ from repro.kernels.paged_attention.ref import paged_attention_ref as \
 from repro_torch.convert import tensor_from_numpy, tensor_to_numpy
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.tolerance import LM_TOL, MAMBA_TOL
 from repro_torch.models.recurrent import linear_rnn
@@ -246,14 +251,26 @@ def test_paged_shared_memory_fits(D, itemsize):
 # ------------------------------------------------------------- mamba -------
 def scan_model(dt, x, Bm, Cm, A_log, D_skip):
     """The scan as the kernel computes it: a = 2^(dt·A₂) with
-    A₂ = -exp(A_log)·log2(e), b = (dt·x)·B with dt·x in float32."""
+    A₂ = -exp(A_log)·log2(e), b = (dt·x)·B with dt·x in float32. Returns
+    y and the float32 state after the last step, h_last [B, Di, N]."""
     B, S, Di = x.shape
     A2 = -torch.exp(A_log.float()) * LOG2E
     a = torch.exp2(dt.float()[..., None] * A2[None, None])
     b = (dt.float() * x.float())[..., None] * Bm.float()[:, :, None, :]
-    hs, _ = linear_rnn(a, b, torch.zeros(B, Di, A2.shape[1]))
+    hs, h_last = linear_rnn(a, b, torch.zeros(B, Di, A2.shape[1]))
     y = torch.einsum("bsdn,bsn->bsd", hs, Cm.float())
-    return (y + D_skip[None, None] * x.float()).to(x.dtype)
+    return (y + D_skip[None, None] * x.float()).to(x.dtype), h_last
+
+
+def jlast_state(dt, x, Bm, A_log):
+    """The reference's last state: its ``linear_rnn`` over
+    ``mamba_scan_ref``'s discretisation, from zero."""
+    A = -jnp.exp(A_log.astype(jnp.float32))
+    a = jnp.exp(dt.astype(jnp.float32)[..., None] * A[None, None])
+    b = (dt * x).astype(jnp.float32)[..., None] \
+        * Bm.astype(jnp.float32)[:, :, None, :]
+    h0 = jnp.zeros((x.shape[0], x.shape[2], A.shape[1]), jnp.float32)
+    return jlinear_rnn(a, b, h0, chunk=16)[1]
 
 
 def _mamba(case, dtype):
@@ -267,9 +284,51 @@ def _mamba(case, dtype):
 @pytest.mark.parametrize("case", MAMBA_CASES + MAMBA_EDGE_CASES)
 def test_scan_model_matches_reference(case, dtype):
     jargs, targs = _mamba(case, dtype)
-    out = scan_model(*targs)
+    out, _ = scan_model(*targs)
     assert out.dtype == targs[1].dtype
     _close(out, jmamba_ref(*jargs), MAMBA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", MAMBA_CASES + MAMBA_EDGE_CASES)
+def test_scan_model_last_state_matches_reference(case, dtype):
+    """The state the kernel writes (its exp2 discretisation, dt·x in
+    float32 where the reference rounds it to the inputs' dtype: hence the
+    dtype's tolerance) against the reference's ``linear_rnn`` last state;
+    the port's plain version with ``return_state``, which rounds as the
+    reference does, within float32's; its y is its default call's."""
+    jargs, targs = _mamba(case, dtype)
+    _, h_last = scan_model(*targs)
+    want = jlast_state(*jargs[:3], jargs[4])
+    assert h_last.dtype == torch.float32
+    _close(h_last, want, MAMBA_TOL[dtype], "h_last against the reference")
+    y, h_ref = mamba_scan_ref(*targs, return_state=True)
+    assert torch.equal(y, mamba_scan_ref(*targs))
+    _close(h_ref, want, MAMBA_TOL["float32"], "mamba_scan_ref h_last")
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_scan_ref_from_a_state_matches_reference(dtype):
+    """``mamba_scan_ref(h0=...)``, the mamba layer's plain scan from a
+    decode cache's state, against the reference's ``linear_rnn`` from the
+    same state over ``mamba_scan_ref``'s discretisation: y and the last
+    state."""
+    jargs, targs = _mamba((2, 37, 12, 5), dtype)
+    jdt, jx, jB, jC, jA_log, jD = jargs
+    h0 = np.random.default_rng(7).standard_normal((2, 12, 5)).astype(
+        np.float32)
+    A = -jnp.exp(jA_log.astype(jnp.float32))
+    a = jnp.exp(jdt.astype(jnp.float32)[..., None] * A[None, None])
+    b = (jdt * jx).astype(jnp.float32)[..., None] \
+        * jB.astype(jnp.float32)[:, :, None, :]
+    hs, want_h = jlinear_rnn(a, b, jnp.asarray(h0), chunk=16)
+    want_y = (jnp.einsum("bsdn,bsn->bsd", hs, jC.astype(jnp.float32))
+              + jD[None, None] * jx).astype(jx.dtype)
+    y, h_last = mamba_scan_ref(*targs, h0=torch.from_numpy(h0),
+                               return_state=True)
+    assert y.dtype == targs[1].dtype and h_last.dtype == torch.float32
+    _close(y, want_y, MAMBA_TOL[dtype], "y from a state")
+    _close(h_last, want_h, MAMBA_TOL["float32"], "h_last from a state")
 
 
 def test_scan_model_padded_states_and_steps():
@@ -278,11 +337,14 @@ def test_scan_model_padded_states_and_steps():
     dt, x, Bm, Cm, A_log, D_skip = (torch.from_numpy(a) for a in
                                     mamba_inputs(2, 37, 12, 5))
     pad = lambda t, n, s: torch.nn.functional.pad(t, (0, n, 0, s))  # noqa
-    ref = scan_model(dt, x, Bm, Cm, A_log, D_skip)
-    out = scan_model(pad(dt, 0, 11), pad(x, 0, 11), pad(Bm, 3, 11),
-                     pad(Cm, 3, 11), torch.nn.functional.pad(A_log, (0, 3)),
-                     D_skip)
+    ref, h_ref = scan_model(dt, x, Bm, Cm, A_log, D_skip)
+    out, h_last = scan_model(pad(dt, 0, 11), pad(x, 0, 11), pad(Bm, 3, 11),
+                             pad(Cm, 3, 11),
+                             torch.nn.functional.pad(A_log, (0, 3)), D_skip)
     np.testing.assert_array_equal(out[:, :37].numpy(), ref.numpy())
+    # the last state after the padded steps is the state after step S
+    np.testing.assert_array_equal(h_last[..., :5].numpy(), h_ref.numpy())
+    assert not h_last[..., 5:].any()
 
 
 def test_scan_launch_arithmetic():

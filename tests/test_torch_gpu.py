@@ -42,7 +42,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.tolerance import F32_PLAIN_ATOL_RMS, \
     F32_PLAIN_RTOL, LM_TOL, MAMBA_TOL
 from repro_torch.kernels import _build
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, recurrent, transformer
 from repro_torch.serve import engine, kvcache as kvc
 
 
@@ -1367,6 +1367,68 @@ def test_mamba_kernel_edges_on_card(case, dtype):
     torch.cuda.synchronize()
     assert out.shape == (B, S, Di) and out.dtype == args[1].dtype
     _close(out, plain, MAMBA_TOL[dtype], f"bd={bd} chunk={chunk}")
+
+
+# (B, S, Di, N): chip_smoke's S1 (jamba-v0.1 width, B 2, S 4,096) and
+# jamba's prefill on its path (B 4, S 1,000: not a multiple of the chunk)
+MAMBA_STATE_CASES = [(2, 4096, 8192, 16), (4, 1000, 8192, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", MAMBA_STATE_CASES)
+def test_mamba_kernel_last_state_on_card(case, dtype):
+    """``return_state``: one launch; its y is the default call's, bit for
+    bit; y and the float32 last state held to the plain version (the
+    kernel takes dt·x in float32 where the plain version rounds it to the
+    inputs' dtype, so the state is held at the dtype's tolerance)."""
+    dev = _cuda()
+    dt, x, Bm, Cm, A_log, D_skip = mamba_inputs(*case)
+    args = [_f(a, dtype, dev) for a in (dt, x, Bm, Cm)] \
+        + [torch.from_numpy(A_log).to(dev), torch.from_numpy(D_skip).to(dev)]
+    before = mamba_ops.mamba_scan.launches
+    y, h_last = mamba_ops.mamba_scan(*args, return_state=True)
+    assert mamba_ops.mamba_scan.launches == before + 1
+    y0 = mamba_ops.mamba_scan(*args)
+    plain, h_plain = mamba_scan_ref(*args, return_state=True)
+    torch.cuda.synchronize()
+    B, S, Di, N = case
+    assert h_last.shape == (B, Di, N) and h_last.dtype == torch.float32
+    assert torch.equal(y, y0)
+    _close(y, plain, MAMBA_TOL[dtype], f"y, S={S}")
+    _close(h_last, h_plain, MAMBA_TOL[dtype], f"h_last, S={S}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_apply_mamba_kernel_matches_plain_on_card(dtype):
+    """A mamba layer's prefill through the kernel (its float32 route)
+    against ``kernels=False`` on the same weights: y in the model's dtype,
+    the conv state bit for bit, the SSM state within float32's tolerance;
+    decode from either cache runs plain (no launch)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = recurrent.Mamba(256, dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+    x = torch.randn(2, 100, 256, generator=gen, device=dev) \
+        .to(getattr(torch, dtype))
+    with torch.no_grad():
+        before = mamba_ops.mamba_scan.launches
+        yk, ck = recurrent.apply_mamba(p, x)
+        assert mamba_ops.mamba_scan.launches == before + 1
+        yp, cp = recurrent.apply_mamba(p, x, kernels=False)
+        x1 = x[:, :1]
+        zk, dk = recurrent.apply_mamba(p, x1, ck)
+        zp, dp = recurrent.apply_mamba(p, x1, cp)
+        assert mamba_ops.mamba_scan.launches == before + 1
+    torch.cuda.synchronize()
+    assert yk.dtype == x.dtype and ck.ssm.dtype == torch.float32
+    tol = MAMBA_TOL[dtype]
+    _close(yk, yp, tol, "prefill y")
+    assert torch.equal(ck.conv, cp.conv)
+    _close(ck.ssm, cp.ssm, MAMBA_TOL["float32"], "prefill ssm state")
+    _close(zk, zp, tol, "decode y")
+    _close(dk.ssm, dp.ssm, MAMBA_TOL["float32"], "decode ssm state")
 
 
 @pytest.mark.gpu

@@ -12,7 +12,7 @@ from repro_torch.core import gc
 from repro_torch.core.tsoracle import VectorOracle
 from repro_torch.db import tpcc
 from repro_torch.kernels import _build
-from repro_torch.models import api
+from repro_torch.models import api, recurrent
 from repro_torch.serve import engine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,6 +67,26 @@ def test_serve_entry_points_refuse_the_cpu_silently(monkeypatch):
         engine.Engine(cfg, model, engine.EngineConfig())
     eng = engine.Engine(cfg, model, engine.EngineConfig(), device="cpu")
     assert eng.init_state().tokens.device.type == "cpu"
+
+
+def test_recurrent_entry_points_refuse_the_cpu_silently(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    for aid in ("jamba-v0.1-52b", "xlstm-350m"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            api.build(reduced(get_arch(aid))).init(gen)
+    for make in (lambda **kw: recurrent.init_mamba(16, **kw),
+                 lambda **kw: recurrent.init_mlstm(16, 2, **kw),
+                 lambda **kw: recurrent.init_slstm(16, 2, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(generator=gen)
+        assert next(make(generator=gen, device="cpu").parameters()) \
+            .device.type == "cpu"
+    for init in (lambda **kw: recurrent.mlstm_init_cache(1, 2, 8, **kw),
+                 lambda **kw: recurrent.slstm_init_cache(1, 16, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init()
+        assert init(device="cpu").m.device.type == "cpu"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
