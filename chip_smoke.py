@@ -6,7 +6,7 @@ against their plain PyTorch versions.
                           [--seed 0] [--profile-rounds 4] [--lm-reps 20]
                           [--durable-rounds 8] [--shards 4]
                           [--shard-rounds 8] [--oracle-rounds 32]
-                          (phases 12-13, the LM models, take --seed)
+                          (phases 12-14, the LM models, take --seed)
 
 Phases, each fatal on failure:
 
@@ -141,10 +141,12 @@ Phases, each fatal on failure:
    oracle's (the headers differ by design). Each oracle's round medians,
    kernel path and plain, and two profiled rounds (launches and host
    synchronisations a round: the runtime's synchronising calls, which
-   every copy the host waits for ends in, must not exceed the vector
-   oracle's) are printed, and the naive counter beside its capacity. (b)
-   Phase 10's
-   deployment on its loaded pool under ``CompressedVectorOracle(60 S,
+   every copy the host waits for ends in, and the operators that read the
+   device's values, ``_local_scalar_dense`` and ``nonzero``, both counted
+   on the host's side of the trace, must not exceed the vector oracle's;
+   the device-side copies to the host, whose records vary between runs of
+   one code, are printed alone) are printed, and the naive counter beside
+   its capacity. (b) Phase 10's deployment on its loaded pool under ``CompressedVectorOracle(60 S,
    threads_per_server=60)``, the vector replicated (S slots): ``--shard-
    rounds`` journalled mix rounds with a GC sweep every 2 rounds over the
    servers with both kernels, against the plain path over the servers and
@@ -163,23 +165,26 @@ Phases, each fatal on failure:
    ninth replaced by one of 4,100, admitted in two waves of at most 8,
    ``max_new`` 16, stragglers forced done and released). The kernel engine
    and the plain engine run in lockstep, the plain engine's tokens and
-   ``done`` copied into the kernel engine after every admission and step:
+   ``done`` copied into the kernel engine after every admission and step,
+   and each of the plain engine's MoE layers on the expert choices of the
+   kernel engine's same call (weighted by its own router's
+   probabilities), so the two differ by the kernels' arithmetic alone:
    the integer state (page headers, refcounts, page table, lengths,
    flags, epoch) must be bit-identical throughout; the first layer's K/V
-   bit-identical and every layer's within a relative RMS difference of
-   0.05; each admission's and step's logits within a relative RMS
-   difference of 0.05; greedy tokens equal wherever the plain path's
-   top-1/top-2 margin exceeds 4x the position's max |logit difference|
-   (every prompt position and every decode row; at least one such
-   position a request). A token whose MoE dispatch differs between the
-   paths (another expert, or the other side of a capacity) is counted and
-   its row and K/V are left out of the RMS checks; at the first layer at
-   which it differs the plain router must nearly tie (margin at most
-   0.01, 0.05 after an earlier token of its row differed at a lower
-   layer) or its rank lie within 64 of the capacity's edge, at most 0.4
-   of an admission's tokens and 0.75 of a step's lanes may differ, and
-   at least one row of logits must not. The first and the last call of
-   each kernel in every admission and step must match its plain version
+   bit-identical and every layer's at every written position within a
+   relative RMS difference of ``SERVE_RRMS["kv"]``; every row of each
+   admission's and step's logits within ``SERVE_RRMS["logits"]``;
+   greedy tokens equal wherever the plain path's top-1/top-2 margin
+   exceeds 4x the position's max |logit difference| (every prompt
+   position and every decode row; at least one such position a
+   request). Where the plain router's own choice differs from the kernel
+   engine's (another expert, or the other side of a capacity), at its
+   first such layer it must nearly tie (``SERVE_ROUTER_TIE``) or its
+   rank lie within ``SERVE_EDGE_RANKS`` of the capacity's edge, and at
+   most ``SERVE_DIVERTED_ADMIT`` of an admission's tokens may differ (a
+   step's lanes are counted). The first and
+   the last call of each kernel in every admission and step must match
+   its plain version
    (``tolerance``);
    ``flash_attention`` must launch once a layer an admission,
    ``paged_attention`` once a layer a step with a lane in its contract
@@ -221,7 +226,32 @@ Phases, each fatal on failure:
    RMS difference of 1e-4 after the prefill of the prompts' first 128
    tokens and every step after it, and of 1e-3 over the whole prompts
    (float32 itself drifts from exact arithmetic as the sLSTM's sequence
-   grows: ``scripts/xlstm_unit_precision.py``).
+   grows: ``scripts/xlstm_unit_precision.py``);
+14. the encoder-decoder and prefix-LM models through ``Model.prefill`` /
+   ``decode_step`` (phase 13's models freed first), each at full width
+   and depth with bf16 weights from ``--seed``: whisper-medium, 8 clips of
+   its 1,500-frame (30 s) window as stub embeddings (0.1·N(0, 1)) and a
+   4-token prompt; paligemma-3b, 8 images of 256 patch embeddings and 32
+   text tokens (S = 288); then 16 greedy decode steps. The kernel path
+   and the plain path in lockstep on one model, both fed the plain path's
+   greedy tokens: ``flash_attention`` must launch once an encoder layer,
+   once a decoder layer's self-attention and once a cross-attention a
+   whisper prefill (72) and once a cross-attention a step (24), twice a
+   paligemma layer a prefill (a causal launch over the 288 rows and a
+   non-causal one over the 256-patch prefix: 36) and never a step, and no
+   other kernel may launch; the first and the last call of each kind
+   (encoder, decoder self-attention, cross-attention at prefill and at
+   decode, prefix causal and prefix block) in the prefill and every step
+   must match its plain version (``tolerance``); ``kv_len`` equal; the
+   first layer's K/V bit-identical; every layer's K/V, whisper's encoder
+   output at its full 1,500 frames and every row of logits within a
+   relative RMS difference of ``ENCDEC_RRMS``; greedy tokens equal where
+   the margin tests them (every prompt position and every step, at least
+   one a prompt). Each kind's first call is then timed with CUDA events
+   beside its bound, its plain version and SDPA on the same inputs, and
+   both paths run the traffic alone, timed (prefill ms, the median decode
+   step, idle share, host syncs), with the kernel's device time a call
+   beside its bound.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -277,6 +307,7 @@ from repro_torch.data.pipeline import make_prompts  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
+from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the FP32 rate
@@ -546,20 +577,25 @@ WRAPPERS = {"batched_probe": (probe_ops, "batched_probe"),
             "mamba_scan": (mamba_ops, "mamba_scan")}
 
 
+# the wrapper functions themselves, whose counters a shadow's replacing of
+# the module attribute leaves in place
+COUNTERS = {n: getattr(m, f) for n, (m, f) in WRAPPERS.items()}
+
+
 def launch_counts(decide=False):
     """Each kernel's launches; with ``decide`` also the decide-only ones
     among ``fused_commit``'s (``fused_commit_decide``)."""
-    counts = {n: getattr(m, f).launches for n, (m, f) in WRAPPERS.items()}
+    counts = {n: c.launches for n, c in COUNTERS.items()}
     if decide:
         counts["fused_commit_decide"] = \
-            commit_ops.fused_commit.decide_launches
+            COUNTERS["fused_commit"].decide_launches
     return counts
 
 
 def reset_launch_counts():
-    for m, f in WRAPPERS.values():
-        getattr(m, f).launches = 0
-    commit_ops.fused_commit.decide_launches = 0
+    for c in COUNTERS.values():
+        c.launches = 0
+    COUNTERS["fused_commit"].decide_launches = 0
 
 
 # the outcome of each sub-round of the mix, as the driver sees it
@@ -1531,8 +1567,15 @@ def run_lm_phase(dev, seed, reps):
 
 # --------------------------------------------------------- profiling ----
 # host synchronisations in a trace: the runtime calls that wait for the
-# device, and the device's copies to the host (each one waited for)
+# device, and the aten operators whose result the host reads from the
+# device (``.item()``, ``bool()``, ``int()`` and ``.tolist()`` of a 0-d
+# tensor end in ``_local_scalar_dense``; ``nonzero`` reads its count), all
+# counted on the host's side of the trace; and, as information only, the
+# device's copies to the host, whose records vary between runs of one
+# code (11.5 or 13.0 a round in phase 11)
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+DEVICE_READS = ("aten::_local_scalar_dense", "aten::nonzero")
+GATED_SYNCS = ("sync calls", "device reads")
 
 
 def profiled(fn):
@@ -1540,9 +1583,9 @@ def profiled(fn):
     returns the wall time and the trace's device time by kernel, the idle
     share's inputs and the host's waits: the device-side events (kernels,
     copies, fills), which run one at a time on the one stream, summed by
-    name, and the counts of ``SYNC_CALLS`` runtime calls and of
-    device-to-host copies (the two ``torch.cuda.synchronize`` calls around
-    ``fn`` excluded)."""
+    name, and the counts of ``SYNC_CALLS`` runtime calls, of
+    ``DEVICE_READS`` operators and of device-to-host copies (the two
+    ``torch.cuda.synchronize`` calls around ``fn`` excluded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1553,7 +1596,7 @@ def profiled(fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
-    syncs = {"sync calls": -2, "DtoH copies": 0}
+    syncs = {"sync calls": -2, "device reads": 0, "DtoH copies": 0}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
@@ -1561,6 +1604,7 @@ def profiled(fn):
             syncs["DtoH copies"] += "DtoH" in e.name
         else:
             syncs["sync calls"] += e.name in SYNC_CALLS
+            syncs["device reads"] += e.name in DEVICE_READS
     rows = sorted(((k, t, n) for k, (t, n) in by_name.items()),
                   key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
@@ -1592,8 +1636,9 @@ def print_profile(label, n_rounds, wall_us, busy_us, rows, syncs, note=""):
                 for k in OURS}
     per_round = {k: v / n_rounds for k, v in syncs.items()}
     print(f"  per round: CUDA launches {launches}; host synchronisations "
-          f"{per_round} ({', '.join(SYNC_CALLS)} calls; device-to-host "
-          f"copies){note}")
+          f"{per_round} ({', '.join(SYNC_CALLS)} calls; "
+          f"{', '.join(DEVICE_READS)} operators; device-to-host copies)"
+          f"{note}")
     return launches, per_round
 
 
@@ -2453,9 +2498,10 @@ def run_oracle_mix(args, dev, smi, cfg, plain_cfg, lay, st_load):
               f"{smi}")
     for name, (cuda, syncs) in profiles.items():
         base = profiles["vector"][1]
-        check(all(syncs[k] <= base[k] for k in base),
+        check(all(syncs[k] <= base[k] for k in GATED_SYNCS),
               f"oracle mix ({name}): more host synchronisations a round "
-              f"than under the vector oracle: {syncs} against {base}")
+              f"({', '.join(GATED_SYNCS)}) than under the vector oracle: "
+              f"{syncs} against {base}")
     print("oracle mix, round medians (kernels, plain; ms, host clock): "
           + ", ".join(f"{k} {a:.3f}, {b:.3f}" for k, (a, b) in
                       medians.items())
@@ -2626,30 +2672,26 @@ SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_LONG = 12, 16, 4100
 # 40.5 GB of bf16 weights (56 would be 281 GB); 4 gemma2 layers are two
 # units of its local/global pair
 SERVE_CONFIGS = (("mixtral-8x22b", 8), ("gemma2-27b", 4))
-# the kernel path's logits of an admission or a decode step, and each
-# layer's K/V, against the plain path's: the relative RMS of their
-# difference at most this, over the rows and positions whose token's MoE
-# dispatch was the plain path's
-SERVE_LOGIT_RRMS = 0.05
-# a token whose MoE dispatch differs between the two paths must first
-# differ where the plain path nearly ties: at that layer, the plain
-# router's probability of the expert it chose minus that of the expert the
-# kernel path chose in the same place at most SERVE_ROUTER_TIE; where the
-# token's choices agree and only its side of a capacity differs, its plain
-# rank at most SERVE_EDGE_RANKS from the capacity's edge (0: the last kept
-# or the first dropped). A token whose row held an earlier token that
-# differed at a lower layer (its attention inputs already differ by whole
-# expert outputs) is held to SERVE_ROUTER_TIE_AFTER instead. At most
-# SERVE_DIVERTED_ADMIT of an admission's prompt tokens and
-# SERVE_DIVERTED_STEP of a step's live lanes may differ, and at least one
-# row of logits must not. The limits are about twice the largest seen on
-# the card (mixtral-8x22b: margins 0.00505 and 0.0252, 26 ranks from the
-# edge of a capacity of 2,560, shares 0.250 and 0.75; PERF.md §6).
-SERVE_ROUTER_TIE = 0.01
-SERVE_ROUTER_TIE_AFTER = 0.05
-SERVE_EDGE_RANKS = 64
+# the plain engine replays the kernel engine's expert choices (each MoE
+# layer takes the experts the kernel engine's same call chose, weighted by
+# its own router's probabilities), so the two differ by the kernels'
+# arithmetic alone: every row of logits of an admission or a decode step,
+# and every written position of every layer's K/V, against the plain
+# engine's, the relative RMS of their difference at most SERVE_RRMS. The
+# plain router's own other choices change nothing downstream then; where
+# one differs from the kernel engine's (another expert, or another side of
+# a capacity), at its first such layer the plain router's probability of
+# the expert it chose minus that of the expert the kernel engine chose at
+# most SERVE_ROUTER_TIE, or its plain rank at most SERVE_EDGE_RANKS from
+# the capacity's edge (0: the last kept or the first dropped), and at most
+# SERVE_DIVERTED_ADMIT of an admission's prompt tokens; a step's lanes (at
+# most 8) are counted, not bounded (6 of 8 at seed 1). Each limit is about
+# twice the larger reading of seeds 0 and 1 on the card
+# (``scripts/lockstep_seeds.py --phase 12 0 1``, PERF.md §6).
+SERVE_RRMS = {"logits": 0.035, "kv": 0.03}
+SERVE_ROUTER_TIE = 0.03
+SERVE_EDGE_RANKS = 32
 SERVE_DIVERTED_ADMIT = 0.4
-SERVE_DIVERTED_STEP = 0.75
 # greedy tokens must agree where the plain path's top-1/top-2 margin
 # exceeds this many times the position's max |logit difference|
 SERVE_MARGIN = 4.0
@@ -2688,10 +2730,13 @@ class ServeShadow:
     kernel's wrapper in the current step of the kernel engine (``tag``
     "k"); the first ``decode_attention`` of the current step of either
     engine (``tag`` "k" or "p"): the kernel engine's plain sub-batch and
-    the plain engine's whole batch, both at the first layer; and every
-    MoE layer's router probabilities and expert choices
+    the plain engine's whole batch, both at the first layer; every MoE
+    layer's router probabilities and expert choices
     (``moe.top_k_choices``) and the prefill's final hidden states
-    (``forward_hidden``) of either engine."""
+    (``forward_hidden``) of either engine. Each MoE layer of the plain
+    engine (tag "p") takes the expert choices of the kernel engine's same
+    call, weighted by its own router's probabilities; ``routes["p"]``
+    keeps the choices its router made."""
 
     SITES = ((flash_ops, "flash_attention"), (paged_ops, "paged_attention"),
              (moe_ops, "moe_gmm"), (model_common, "decode_attention"),
@@ -2721,7 +2766,11 @@ class ServeShadow:
         if tag == "k":
             self.calls = {}
 
-    def _wrap(self, name):
+    def call_key(self, name, args, kw):
+        """The key of a kernel call in ``calls``: the kernel's name."""
+        return name
+
+    def _record(self, name):
         fn = self.orig[name]
 
         def call(*args, **kw):
@@ -2736,9 +2785,23 @@ class ServeShadow:
                 self.hidden[self.tag] = out[0]
             elif self.tag == "k":
                 rec = (args, kw, out)
-                self.calls.setdefault(name, [rec, rec])[1] = rec
+                key = self.call_key(name, args, kw)
+                self.calls.setdefault(key, [rec, rec])[1] = rec
             return out
         return call
+
+    def _wrap(self, name):
+        call = self._record(name)
+        if name != "top_k_choices":
+            return call
+
+        def replay(probs, k):
+            vals, idx = call(probs, k)
+            if self.tag != "p":
+                return vals, idx
+            idx = self.routes["k"][len(self.routes["p"]) - 1][1]
+            return probs.gather(-1, idx), idx
+        return replay
 
 
 def dispatch_rank(idx, capacity_factor, E):
@@ -2752,19 +2815,15 @@ def dispatch_rank(idx, capacity_factor, E):
     return rank.reshape(T, k), C
 
 
-def dispatch_firsts(cfg, shadow, capacity_factor, rows, prior, held,
-                    share_limit, res, what, carried=True,
-                    tie=SERVE_ROUTER_TIE):
-    """Each token's first MoE layer at which its dispatch differs between
-    the two engines (another expert, or another side of a capacity), host
-    int [rows, T // rows], ``n_layers`` where none. ``prior`` host int
-    [rows]: the lowest first layer among each row's tokens already in the
-    pool; ``held`` host bool [rows, T // rows]: the tokens gated (prompt
+def dispatch_firsts(cfg, shadow, capacity_factor, rows, held, share_limit,
+                    res, what, tie=SERVE_ROUTER_TIE, where="admission"):
+    """Each token's first MoE layer at which the plain router's own
+    dispatch differs from the kernel path's (another expert, or another
+    side of a capacity), host int [rows, T // rows], ``n_layers`` where
+    none. ``held`` host bool [rows, T // rows]: the tokens gated (prompt
     positions, live lanes). Each held token's first difference is held to
-    ``tie`` (``SERVE_ROUTER_TIE_AFTER`` where an earlier token
-    of its row differed at a lower layer, unless ``carried`` is False: the
-    plain path replayed the kernel path's choices, so none carries over)
-    or ``SERVE_EDGE_RANKS``, and their share to ``share_limit``."""
+    ``tie`` or ``SERVE_EDGE_RANKS``, and their share to ``share_limit``
+    (the largest share is kept by ``where``: an admission or a step)."""
     rk, rp = shadow.routes["k"], shadow.routes["p"]
     check(len(rk) == len(rp), f"{what}: MoE layers {len(rk)} != {len(rp)}")
     per = []                      # per layer: differs, chose, margin, edge
@@ -2785,41 +2844,32 @@ def dispatch_firsts(cfg, shadow, capacity_factor, rows, prior, held,
             gap[:, -2] - gap[:, -1]]))
     L = len(per)
     d, chose, margin, edge, gap = torch.stack(per, dim=1).cpu().numpy()
-    T = d.shape[1]
     first = np.where(d.any(axis=0), d.argmax(axis=0), L).reshape(rows, -1)
-    # the lowest first layer of each token's earlier tokens in its row
-    before = np.minimum.accumulate(
-        np.concatenate([prior[:, None], first[:, :-1]], axis=1), axis=1)
-    after = (before < first).reshape(-1) & carried
     f = first.reshape(-1)
     on = held.reshape(-1) & (f < L)
     t = np.flatnonzero(on)
     at = f[t]
     flip = chose[at, t] > 0
     m, e = margin[at, t], edge[at, t]
-    for key, pick in (("tie", flip & ~after[t]), ("tie_after", flip
-                                                   & after[t])):
-        if pick.any():
-            res[key] = max(res[key], float(m[pick].max()))
-        res[f"{key}_n"] += int(pick.sum())
+    if flip.any():
+        res["tie"] = max(res["tie"], float(m[flip].max()))
+    res["tie_n"] += int(flip.sum())
     if (~flip).any():
         res["edge"] = max(res["edge"], int(e[~flip].max()))
     res["edge_n"] += int((~flip).sum())
     hg = gap[:, held.reshape(-1)]
     res["gaps"] += hg.size
     res["gaps_under"] += int((hg <= tie).sum())
-    over = flip & (m > np.where(after[t], SERVE_ROUTER_TIE_AFTER, tie))
+    over = flip & (m > tie)
     check(not over.any(), f"{what}: tokens {t[over].tolist()[:8]} first "
                           f"take another expert where the plain router's "
-                          f"margin is {m[over].tolist()[:8]} (limits {tie}, "
-                          f"{SERVE_ROUTER_TIE_AFTER} after an earlier "
-                          f"token)")
+                          f"margin is {m[over].tolist()[:8]} (limit {tie})")
     over = ~flip & (e > SERVE_EDGE_RANKS)
     check(not over.any(), f"{what}: tokens {t[over].tolist()[:8]} first "
                           f"change sides of a capacity {e[over].tolist()[:8]}"
                           f" ranks from its edge (limit {SERVE_EDGE_RANKS})")
     share = float(on.sum()) / max(1, int(held.sum()))
-    res["share"] = max(res["share"], share)
+    res["share"][where] = max(res["share"].get(where, 0.0), share)
     check(share <= share_limit,
           f"{what}: {int(on.sum())} of {int(held.sum())} tokens dispatched "
           f"otherwise than on the plain path (limit share {share_limit})")
@@ -2834,8 +2884,9 @@ def serve_call_work(name, args, kw):
     ``BF16_FLOPS``)."""
     if name == "flash_attention":
         q, k, v = args
-        B, S, Hq, D = q.shape
-        pairs = flash_pairs(S, S, kw["causal"], kw["window"])
+        B, Sq, Hq, D = q.shape
+        pairs = flash_pairs(Sq, k.shape[1], kw.get("causal", True),
+                            kw.get("window"))
         return (2 * _nbytes(q) + _nbytes(k, v),
                 4.0 * D * pairs * B * Hq / BF16_FLOPS)
     if name == "paged_attention":
@@ -2883,7 +2934,8 @@ def check_serve_calls(shadow, res, what):
     def held32(o, p):
         atol = tolerance.F32_PLAIN_ATOL_RMS * rms(p)
         return (*held_to(o, p, atol, tolerance.F32_PLAIN_RTOL), atol)
-    for name, (first, last) in shadow.calls.items():
+    for site, (first, last) in shadow.calls.items():
+        name = site.split(" ")[0]     # the kernel of a call's key
         plain_fn = LM_PLAIN[name]
         names = OUTPUTS.get(name, ("out",))
         for args, kw, out in ((first,) if first is last else (first, last)):
@@ -2893,12 +2945,12 @@ def check_serve_calls(shadow, res, what):
             errs32 = [held32(o, p) for o, p in zip(outs, as_tuple(plain_fn(
                 *[a.float() if a.is_floating_point() else a for a in args],
                 **kw)))]
-            e = res["calls"].setdefault(name, dict(checked=0))
+            e = res["calls"].setdefault(site, dict(checked=0))
             e["checked"] += 1
             for j, ((abs_err, rel_err, ok),
                     (abs32, rel32, ok32, atol32)) in enumerate(
                         zip(errs, errs32)):
-                check(ok and ok32, f"{what}: {name}'s {names[j]} differs "
+                check(ok and ok32, f"{what}: {site}'s {names[j]} differs "
                                    f"from its plain version (max abs "
                                    f"{abs_err}, rel {rel_err}; float32 "
                                    f"plain max abs {abs32}, rel {rel32}, "
@@ -2916,30 +2968,30 @@ def serve_int_state(st):
             st.table.kv_len, st.table.active, st.done, st.epoch)
 
 
-def check_lockstep_state(ks, ps, res, what, taint=None):
-    """The integer state bit for bit. With ``taint`` ({slot: host bool
-    [max_len], the positions whose own MoE dispatch differed}), the KV
-    pools at every other written position of those slots: the first
-    layer's bit for bit (its K/V come from the embeddings through the same
-    operations on both paths), every layer's within a relative RMS
-    difference of ``SERVE_LOGIT_RRMS``; the share of values outside the
-    bf16 rule (``tolerance.LM_TOL``) is recorded."""
+def check_lockstep_state(ks, ps, res, what, slots=()):
+    """The integer state bit for bit; the KV pools at every written
+    position of the ``slots``: the first layer's bit for bit (its K/V
+    come from the embeddings through the same operations on both paths),
+    every layer's within a relative RMS difference of
+    ``SERVE_RRMS["kv"]``; the share of values outside the bf16 rule
+    (``tolerance.LM_TOL``) is recorded."""
     same(serve_int_state(ks), serve_int_state(ps), f"{what}: engine state")
-    if not taint:
+    if not len(slots):
         return
     t = ps.table
     kv_len = t.kv_len.cpu().numpy()
     pt = t.page_table.cpu().numpy()
     ps_ = SERVE_ECFG.page_size
     pages, offs = [], []
-    for s, bad in taint.items():
+    for s in slots:
         pos = np.arange(kv_len[s])
-        pos = pos[~bad[pos] & (pt[s, pos // ps_] >= 0)]
+        pos = pos[pt[s, pos // ps_] >= 0]
         pages.append(pt[s, pos // ps_])
         offs.append(pos % ps_)
     page = torch.as_tensor(np.concatenate(pages), device=t.kv_len.device)
     off = torch.as_tensor(np.concatenate(offs), device=page.device)
     tol = tolerance.LM_TOL["bfloat16"]
+    limit = SERVE_RRMS["kv"]
     for layer, (dk, dp) in enumerate(zip(ks.data, ps.data)):
         for a, b in ((dk.k, dp.k), (dk.v, dp.v)):
             a, b = a[page, off], b[page, off]
@@ -2953,9 +3005,8 @@ def check_lockstep_state(ks, ps, res, what, taint=None):
             res["pool_err"] = max(res["pool_err"], float(d.abs().max()))
             res["pool_rrms"] = max(res["pool_rrms"], rr)
             res["pool_out"] = max(res["pool_out"], out)
-            check(rr <= SERVE_LOGIT_RRMS,
-                  f"{what}: layer {layer}'s KV pool: relative RMS "
-                  f"difference {rr:.4g} > {SERVE_LOGIT_RRMS}")
+            check(rr <= limit, f"{what}: layer {layer}'s KV pool: relative "
+                               f"RMS difference {rr:.4g} > {limit}")
 
 
 def margin_gate(lk, lp, rows, reqs, res, what):
@@ -2974,18 +3025,16 @@ def margin_gate(lk, lp, rows, reqs, res, what):
     res["positions"] += len(rows)
 
 
-def rrms_gate(lk, lp, clean, res, what, limit=SERVE_LOGIT_RRMS):
-    """The relative RMS of the logits' difference over the rows ``clean``
-    (whose token's MoE dispatch was the plain path's) at most ``limit``;
-    fails where there are none."""
-    res["rows"] += len(clean)
-    check(len(clean) > 0, f"{what}: every row of logits was dispatched "
-                          f"otherwise than on the plain path")
-    d = lk[clean].float() - lp[clean].float()
-    rrms = rms(d) / rms(lp[clean])
-    res["rrms"] = max(res["rrms"], rrms)
+def rrms_gate(lk, lp, rows, res, what, limit):
+    """The relative RMS of the logits' difference over ``rows`` at most
+    ``limit``, noting where the largest was."""
+    res["rows"] += len(rows)
+    d = lk[rows].float() - lp[rows].float()
+    rrms = rms(d) / rms(lp[rows])
+    if rrms > res["rrms"]:
+        res["rrms"], res["rrms_at"] = rrms, what
     check(rrms <= limit, f"{what}: logits' relative RMS difference "
-                         f"{rrms:.4g} > {limit} over the rows {clean}")
+                         f"{rrms:.4g} > {limit} over the rows {rows}")
 
 
 def prompt_margins(cfg, model, shadow, lens, reqs, res, what):
@@ -3014,22 +3063,20 @@ def contract_holds(table):
 def serve_lockstep(cfg, model, prompts):
     """Gates 1-4: the kernel engine and the plain engine in lockstep, the
     plain engine's tokens and ``done`` copied into the kernel engine after
-    every admission and step; each kernel's first and last call of every
-    admission and step against its plain version; the plain sub-batch's
-    lanes against the contract. A token whose MoE dispatch differed from
-    the plain path's (another expert, or another side of a capacity) must
-    first have differed at a near tie (:func:`dispatch_firsts`); it is
-    counted, and its logits row and its K/V are left out of the RMS and
-    pool checks."""
+    every admission and step, its MoE layers on the kernel engine's
+    expert choices (:class:`ServeShadow`); every row of logits and every
+    written K/V position within ``SERVE_RRMS``; the plain router's own
+    other choices bounded (:func:`dispatch_firsts`); each kernel's first
+    and last call of every admission and step against its plain version;
+    the plain sub-batch's lanes against the contract."""
     ke = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=True)
     pe = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=False)
     ks, ps = ke.init_state(), pe.init_state()
-    res = dict(admits=0, steps=0, paged_steps=0, rrms=0.0, pool_err=0.0,
-               pool_rrms=0.0, pool_out=0.0, tested={}, calls={},
-               mixed_steps=0, plain_lanes=0, sub_batch_err=0.0, rows=0,
-               positions=0, diverged_tokens=0, diverged_rows=0, tie=0.0,
-               tie_n=0, tie_after=0.0, tie_after_n=0, edge=-1, edge_n=0,
-               share=0.0, gaps=0, gaps_under=0)
+    res = dict(admits=0, steps=0, paged_steps=0, rrms=0.0, rrms_at="",
+               pool_err=0.0, pool_rrms=0.0, pool_out=0.0, tested={},
+               calls={}, mixed_steps=0, plain_lanes=0, sub_batch_err=0.0,
+               rows=0, positions=0, diverged_tokens=0, tie=0.0, tie_n=0,
+               edge=-1, edge_n=0, share={}, gaps=0, gaps_under=0)
     L = cfg.n_layers
     force = lambda k, p: k._replace(tokens=p.tokens.clone(),  # noqa: E731
                                     done=p.done.clone())
@@ -3044,27 +3091,20 @@ def serve_lockstep(cfg, model, prompts):
             what = f"{cfg.name} wave {w + 1} admission"
             slots = sid.tolist()
             lens = [len(p) for p in wave]
-            # each pool position's first diverging MoE layer, L where none
-            taint = {s: np.full(SERVE_ECFG.max_len, L) for s in slots}
             if cfg.n_experts:
                 S = shadow.routes["p"][0][1].shape[0] // len(slots)
                 held = np.arange(S)[None] < np.array(lens)[:, None]
                 first = dispatch_firsts(cfg, shadow, cfg.capacity_factor,
-                                        len(slots), np.full(len(slots), L),
-                                        held, SERVE_DIVERTED_ADMIT, res, what)
-                for i, (s, n) in enumerate(zip(slots, lens)):
-                    taint[s][:n] = first[i, :n]
+                                        len(slots), held,
+                                        SERVE_DIVERTED_ADMIT, res, what)
                 res["diverged_tokens"] += int((first[held] < L).sum())
             check_serve_calls(shadow, res, what)
             prompt_margins(cfg, model, shadow, lens, reqs, res, what)
-            clean = [i for i, (s, n) in enumerate(zip(slots, lens))
-                     if taint[s][n - 1] == L]
-            res["diverged_rows"] += len(slots) - len(clean)
-            rrms_gate(lk, lp, clean, res, what)
+            rrms_gate(lk, lp, list(range(len(slots))), res, what,
+                      SERVE_RRMS["logits"])
             ps = pe.sample_first(ps, lp, sid)
             ks = force(ke.sample_first(ks, lk, sid), ps)
-            check_lockstep_state(ks, ps, res, what,
-                                 {s: taint[s] < L for s in slots})
+            check_lockstep_state(ks, ps, res, what, slots)
             res["admits"] += 1
             req_of = dict(zip(slots, reqs))
             for i in range(SERVE_MAX_NEW - 1):
@@ -3100,29 +3140,19 @@ def serve_lockstep(cfg, model, prompts):
                     res["mixed_steps"] += bool(holds.any())
                 live = (ps.table.active & ~ps.done).cpu().numpy()
                 rows = live.nonzero()[0].tolist()
-                d = np.zeros_like(live)
                 if cfg.n_experts:
-                    pos = ps.table.kv_len.cpu().numpy()
-                    prior = np.array([taint[s][:pos[s]].min() if s in taint
-                                      and pos[s] else L
-                                      for s in range(len(live))])
                     first = dispatch_firsts(
                         cfg, shadow, max(2.0, cfg.capacity_factor),
-                        len(live), prior, live[:, None],
-                        SERVE_DIVERTED_STEP, res, what)[:, 0]
-                    d = (first < L) & live
-                    res["diverged_tokens"] += int(d.sum())
-                    res["diverged_rows"] += int(d.sum())
-                    for s in rows:
-                        taint[s][pos[s]] = first[s]
+                        len(live), live[:, None], 1.0, res, what,
+                        where="step")[:, 0]
+                    res["diverged_tokens"] += int(((first < L) & live).sum())
                 check_serve_calls(shadow, res, what)
                 margin_gate(lk, lp, rows, [req_of[r] for r in rows], res,
                             what)
-                rrms_gate(lk, lp, [r for r in rows if not d[r]], res, what)
+                rrms_gate(lk, lp, rows, res, what, SERVE_RRMS["logits"])
                 ks, ps = ke.sample(ks, lk), pe.sample(ps, lp)
                 ks = force(ks, ps)
-                check_lockstep_state(ks, ps, res, what,
-                                     {s: taint[s] < L for s in rows})
+                check_lockstep_state(ks, ps, res, what, rows)
                 res["steps"] += 1
             # stragglers are forced done at the wave's budget and released
             ks = ke.release_finished(ks._replace(done=ks.done
@@ -3282,25 +3312,22 @@ def run_serve_phase(args, dev, smi, lm_records):
                          f"whose margin tests the greedy token")
         check(res["mixed_steps"] > 0, f"serve {arch}: no step served "
                                       f"contract lanes beside kernel lanes")
-        print(f"serve {arch} MoE dispatch: {res['diverged_tokens']} "
-              f"tokens dispatched otherwise than on the plain path (at most "
-              f"{res['share']:.4g} of an admission's or a step's, limits "
-              f"{SERVE_DIVERTED_ADMIT} and {SERVE_DIVERTED_STEP}), "
-              f"{res['diverged_rows']} of them rows "
-              f"of logits (left out of the RMS: {res['rows']} held to it); "
-              f"at its first differing layer, {res['tie_n']} took another "
-              f"expert at a plain router margin of at most {res['tie']:.4g} "
-              f"(limit {SERVE_ROUTER_TIE}; "
+        print(f"serve {arch} MoE dispatch: on the kernel engine's expert "
+              f"choices; the plain router chose otherwise for "
+              f"{res['diverged_tokens']} tokens (the largest share "
+              f"{res['share']}, limit {SERVE_DIVERTED_ADMIT} an "
+              f"admission); at its "
+              f"first differing layer, {res['tie_n']} took another expert "
+              f"at a plain router margin of at most {res['tie']:.4g} (limit "
+              f"{SERVE_ROUTER_TIE}; "
               f"{res['gaps_under'] / max(1, res['gaps']):.4g} of all held "
               f"tokens' top-{cfg.top_k} margins are that small), "
-              f"{res['tie_after_n']} after an earlier token of its row at a "
-              f"margin of at most {res['tie_after']:.4g} (limit "
-              f"{SERVE_ROUTER_TIE_AFTER}), {res['edge_n']} changed sides of "
-              f"a capacity at most {res['edge']} ranks from its edge (limit "
-              f"{SERVE_EDGE_RANKS}); the K/V of the others: "
-              f"the first layer's bit-identical, every layer's relative RMS "
+              f"{res['edge_n']} changed sides of a capacity at most "
+              f"{res['edge']} ranks from its edge (limit "
+              f"{SERVE_EDGE_RANKS}); every written K/V position: the first "
+              f"layer's bit-identical, every layer's relative RMS "
               f"difference at most {res['pool_rrms']:.4g} (limit "
-              f"{SERVE_LOGIT_RRMS}), max abs {res['pool_err']:.4g}, at most "
+              f"{SERVE_RRMS['kv']}), max abs {res['pool_err']:.4g}, at most "
               f"{res['pool_out']:.4g} of a layer's values outside atol = "
               f"rtol = {tolerance.LM_TOL['bfloat16']}")
         print(f"serve {arch} lockstep: {res['admits']} admissions, "
@@ -3311,7 +3338,9 @@ def run_serve_phase(args, dev, smi, lm_records):
               f"{res['sub_batch_err']:.4g} from the plain engine); launches "
               f"{res['launches']} = expected; integer state bit-identical "
               f"at every step; logits' relative RMS difference max "
-              f"{res['rrms']:.4g} (limit {SERVE_LOGIT_RRMS}); greedy tokens "
+              f"{res['rrms']:.4g} (at {res['rrms_at']}, limit "
+              f"{SERVE_RRMS['logits']}, over all {res['rows']} rows); "
+              f"greedy tokens "
               f"equal at {sum(res['tested'].values())} of "
               f"{res['positions']} positions the margin tests (per request "
               f"{[res['tested'].get(r, 0) for r in range(len(prompts))]}); "
@@ -3366,7 +3395,7 @@ JAMBA_LAYERS = 8
 # layer's state and K/V is held, to a relative RMS difference of at most
 # JAMBA_RRMS, about twice the largest of seeds 0 and 1 on the card
 # (logits 0.0156, conv 0.0142, SSM 0.0267, K/V 0.00726;
-# scripts/jamba_lockstep_seeds.py, PERF.md §6). The
+# scripts/lockstep_seeds.py --phase 13 0 1, PERF.md §6). The
 # plain router's own other choices change nothing downstream then; they
 # are held to JAMBA_ROUTER_TIE (about twice 0.00966) and, over a
 # prefill's 4,000 tokens, to SERVE_DIVERTED_ADMIT; a step's 4 lanes are
@@ -3389,33 +3418,17 @@ RECURRENT_PROFILE_STEPS = 4
 class ModelShadow(ServeShadow):
     """:class:`ServeShadow` over ``Model.prefill`` / ``decode_step``: the
     first and last call of each of ``RECURRENT_KERNELS`` (tag "k"), every
-    MoE layer's routes and the prefill's final hidden states (either
-    tag). Each MoE layer of the plain path (tag "p") takes the expert
-    choices of the kernel path's same call, weighted by its own router's
-    probabilities; ``routes["p"]`` keeps the choices its router made."""
+    MoE layer's routes (the plain path's on the kernel path's expert
+    choices) and the prefill's final hidden states (either tag)."""
 
     SITES = ((flash_ops, "flash_attention"), (moe_ops, "moe_gmm"),
              (mamba_ops, "mamba_scan"), (moe_mod, "top_k_choices"),
              (transformer, "forward_hidden"))
 
-    def _wrap(self, name):
-        call = super()._wrap(name)
-        if name != "top_k_choices":
-            return call
-
-        def replay(probs, k):
-            vals, idx = call(probs, k)
-            if self.tag != "p":
-                return vals, idx
-            idx = self.routes["k"][len(self.routes["p"]) - 1][1]
-            return probs.gather(-1, idx), idx
-        return replay
-
 
 def lm_launches():
-    """The launches of ``RECURRENT_KERNELS``, read from the wrappers'
-    counters (which a shadow's wrapping leaves in place)."""
-    return {n: LM_OPS[n]._COUNTER.launches for n in RECURRENT_KERNELS}
+    """The launches of ``RECURRENT_KERNELS``."""
+    return {n: COUNTERS[n].launches for n in RECURRENT_KERNELS}
 
 
 def state_leaves(slot, kind):
@@ -3427,27 +3440,29 @@ def state_leaves(slot, kind):
     return {f"{kind}.{f}": getattr(st, f) for f in st._fields}
 
 
-def check_model_states(cfg, ck, cp, res, what):
+def check_model_states(cfg, ck, cp, res, what, limits=None):
     """Each layer's cache on the kernel path against the plain path's:
-    every value finite, the first layer's conv state bit for bit (it
-    precedes every kernel), every leaf within a relative RMS difference
-    of ``JAMBA_RRMS`` of its kind."""
+    every value finite, the first layer's conv state or K/V bit for bit
+    (they precede every kernel), every leaf within a relative RMS difference
+    of ``limits`` of its kind (``JAMBA_RRMS`` by default; ``"attn"`` for
+    K/V)."""
+    limits = limits or JAMBA_RRMS
     for i, (layer, sk, sp) in enumerate(zip(
             [s.kind for s in layer_specs(cfg)], ck.slots, cp.slots)):
         for name, a in state_leaves(sk, layer).items():
             b = state_leaves(sp, layer)[name]
             check(bool(torch.isfinite(a.float()).all()),
                   f"{what}: layer {i}'s {name} is not finite")
-            if i == 0 and name == "mamba.conv":
-                check(torch.equal(a, b), f"{what}: the first layer's conv "
-                                         f"state differs")
+            if i == 0 and name in ("mamba.conv", "k", "v"):
+                check(torch.equal(a, b), f"{what}: the first layer's {name} "
+                                         f"differs")
             key = "attn" if layer == "attn" else name
             rr = rms(a.float() - b.float()) / max(rms(b), 1e-30)
             res["states"][key] = max(res["states"].get(key, 0.0), rr)
             res["held"][key] = res["held"].get(key, 0) + 1
-            check(rr <= JAMBA_RRMS[key], f"{what}: layer {i}'s {name}: "
-                                         f"relative RMS difference "
-                                         f"{rr:.4g} > {JAMBA_RRMS[key]}")
+            check(rr <= limits[key], f"{what}: layer {i}'s {name}: "
+                                     f"relative RMS difference {rr:.4g} > "
+                                     f"{limits[key]}")
 
 
 def layer_specs(cfg):
@@ -3459,16 +3474,6 @@ def layer_specs(cfg):
 def moe_layers(cfg):
     """The number of ``cfg``'s MoE layers."""
     return sum(s.mlp == "moe" for s in layer_specs(cfg))
-
-
-def held_rrms(lk, lp, res, what):
-    """:func:`rrms_gate` over every row at ``JAMBA_RRMS["logits"]``,
-    noting where the largest difference was."""
-    before = res["rrms"]
-    rrms_gate(lk, lp, list(range(lk.shape[0])), res, what,
-              JAMBA_RRMS["logits"])
-    if res["rrms"] > before:
-        res["rrms_at"] = what
 
 
 def recurrent_lockstep(cfg, model, tokens):
@@ -3487,9 +3492,9 @@ def recurrent_lockstep(cfg, model, tokens):
     B, S = tokens.shape
     max_len = S + RECURRENT_STEPS + 1
     res = dict(admits=0, steps=0, rrms=0.0, tested={}, calls={}, rows=0,
-               positions=0, diverged_tokens=0, tie=0.0, tie_n=0,
-               tie_after=0.0, tie_after_n=0, edge=-1, edge_n=0, share=0.0,
-               gaps=0, gaps_under=0, states={}, held={}, rrms_at="")
+               positions=0, diverged_tokens=0, tie=0.0, tie_n=0, edge=-1,
+               edge_n=0, share={}, gaps=0, gaps_under=0, states={},
+               held={}, rrms_at="")
     Lm = moe_layers(cfg)
     reqs = list(range(B))
     reset_launch_counts()
@@ -3509,9 +3514,8 @@ def recurrent_lockstep(cfg, model, tokens):
         check(set(shadow.calls) == set(RECURRENT_KERNELS),
               f"{what}: kernel calls recorded {sorted(shadow.calls)}")
         f = dispatch_firsts(cfg, shadow, cfg.capacity_factor, B,
-                            np.full(B, Lm), np.ones((B, S), bool),
-                            SERVE_DIVERTED_ADMIT, res, what, carried=False,
-                            tie=JAMBA_ROUTER_TIE)
+                            np.ones((B, S), bool), SERVE_DIVERTED_ADMIT, res,
+                            what, tie=JAMBA_ROUTER_TIE, where="prefill")
         res["diverged_tokens"] += int((f < Lm).sum())
         check_serve_calls(shadow, res, what)
         prompt_margins(cfg, model, shadow, [S] * B, reqs, res, what)
@@ -3519,7 +3523,7 @@ def recurrent_lockstep(cfg, model, tokens):
         check_model_states(cfg, ck, cp, res, what)
         lk, lp = (transformer.lm_head(h, model.embed, cfg.logit_softcap)
                   for h in (hk, hp))
-        held_rrms(lk, lp, res, what)
+        rrms_gate(lk, lp, reqs, res, what, JAMBA_RRMS["logits"])
         res["admits"] += 1
         tok = lp.argmax(dim=-1).to(torch.int32)
         for step in range(RECURRENT_STEPS):
@@ -3534,15 +3538,14 @@ def recurrent_lockstep(cfg, model, tokens):
             want = {"flash_attention": 0, "moe_gmm": Lm, "mamba_scan": 0}
             check(got == want, f"{what}: launches {got}, expected {want}")
             fs = dispatch_firsts(cfg, shadow, max(2.0, cfg.capacity_factor),
-                                 B, np.full(B, Lm), np.ones((B, 1), bool),
-                                 1.0, res, what, carried=False,
-                                 tie=JAMBA_ROUTER_TIE)
+                                 B, np.ones((B, 1), bool), 1.0, res, what,
+                                 tie=JAMBA_ROUTER_TIE, where="step")
             res["diverged_tokens"] += int((fs < Lm).sum())
             check_serve_calls(shadow, res, what)
             same(ck.kv_len, cp.kv_len, f"{what}: kv_len")
             check_model_states(cfg, ck, cp, res, what)
             margin_gate(lk, lp, reqs, reqs, res, what)
-            held_rrms(lk, lp, res, what)
+            rrms_gate(lk, lp, reqs, res, what, JAMBA_RRMS["logits"])
             tok = lp.argmax(dim=-1).to(torch.int32)
             res["steps"] += 1
     res["launches"] = lm_launches()
@@ -3551,18 +3554,23 @@ def recurrent_lockstep(cfg, model, tokens):
     return res
 
 
-def model_timed(cfg, model, tokens, kernels, names=(),
+def prompt_len(cfg, batch):
+    """The positions a prefill of ``batch`` fills: its tokens, behind the
+    patches of a prefix-LM."""
+    return batch["tokens"].shape[1] + (cfg.prefix_len if cfg.is_prefix_lm
+                                       else 0)
+
+
+def model_timed(cfg, model, batch, kernels, names=(),
                 profile_prefill=True):
-    """The traffic through ``Model.prefill`` / ``decode_step`` alone: the
-    prefill's ms twice (the first a warm-up) and each decode step's ms
-    (host clock, synchronised); then a prefill (unless
+    """The traffic ``batch`` through ``Model.prefill`` / ``decode_step``
+    alone: the prefill's ms twice (the first a warm-up) and each decode
+    step's ms (host clock, synchronised); then a prefill (unless
     ``profile_prefill`` is False) and ``RECURRENT_PROFILE_STEPS`` steps
     under the profiler, and once more with the bound of each call of the
     kernels ``names`` recorded."""
     m = api.build(cfg)
-    B, S = tokens.shape
-    max_len = S + RECURRENT_STEPS + 1
-    batch = {"tokens": tokens}
+    max_len = prompt_len(cfg, batch) + RECURRENT_STEPS + 1
     prefill, steps = [], []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -3677,7 +3685,7 @@ def run_jamba(args, dev, smi, phase8):
           f"the margin tests (per prompt "
           f"{[res['tested'].get(r, 0) for r in range(RECURRENT_B)]}); "
           f"the plain router chose otherwise for {res['diverged_tokens']} "
-          f"tokens (at most {res['share']:.4g} of a prefill's or a step's; "
+          f"tokens (the largest share {res['share']}; "
           f"{res['tie_n']} at a margin of at most {res['tie']:.4g}, limit "
           f"{JAMBA_ROUTER_TIE}, "
           f"{res['edge_n']} at most {res['edge']} ranks from a capacity's "
@@ -3686,7 +3694,7 @@ def run_jamba(args, dev, smi, phase8):
     out = {}
     for kernels in (True, False):
         label = f"{cfg.name}, {'kernels' if kernels else 'plain'}"
-        t = model_timed(cfg, model, tokens, kernels,
+        t = model_timed(cfg, model, {"tokens": tokens}, kernels,
                         RECURRENT_KERNELS if kernels else ())
         med = print_model_times(label, t, smi)
         key = "kernels" if kernels else "plain"
@@ -3723,7 +3731,8 @@ def run_xlstm(args, dev, smi):
           f"parameters (bf16, random from the seed), {RECURRENT_B} prompts "
           f"of {RECURRENT_PROMPT} tokens, {RECURRENT_STEPS} steps",
           flush=True)
-    t = model_timed(cfg, model, tokens, True, profile_prefill=False)
+    t = model_timed(cfg, model, {"tokens": tokens}, True,
+                    profile_prefill=False)
     counts = [t["prefill_calls"], t["decode_calls"]]
     check(not any(v for c in counts for v in c.values()),
           f"{cfg.name}: a kernel launched on a path without one: {counts}")
@@ -3805,6 +3814,302 @@ def run_recurrent_phase(args, dev, smi, lm_records):
     jamba = run_jamba(args, dev, smi, {r["name"]: r for r in lm_records})
     xlstm = run_xlstm(args, dev, smi)
     return jamba, xlstm
+
+
+# ---------------------------------- the encoder-decoder and prefix-LM ----
+# phase 14's traffic through Model.prefill / decode_step at full width and
+# depth: whisper-medium, ENCDEC_B clips of its 1,500-frame (30 s) window as
+# stub embeddings, 0.1·N(0, 1) as the reference's data pipeline makes them,
+# and a 4-token start-of-transcript prompt; paligemma-3b, ENCDEC_B images
+# of 256 patch embeddings (0.1·N(0, 1)) and 32 text tokens; then
+# RECURRENT_STEPS (16) greedy decode steps
+ENCDEC_B = 8
+ENCDEC_PROMPT = {"whisper-medium": 4, "paligemma-3b": 32}
+# neither model has experts, so the kernel path and the plain path differ
+# by the kernels' arithmetic alone: every row of logits, each layer's K/V
+# ("attn") and whisper's encoder output ("enc_kv") within these relative
+# RMS differences, about twice the larger reading of seeds 0 and 1 on the
+# card (scripts/lockstep_seeds.py --phase 14 0 1, PERF.md §6)
+ENCDEC_RRMS = {"logits": 0.045, "attn": 0.045, "enc_kv": 0.06}
+ENCDEC_REPS = 20      # CUDA-event launches timed per kind of flash call
+
+
+class EncdecShadow(ServeShadow):
+    """:class:`ServeShadow` over ``Model.prefill`` / ``decode_step`` of an
+    encoder-decoder or prefix-LM: the first and last ``flash_attention``
+    call of each kind (tag "k"), keyed ``flash_attention (kind)``, and how
+    many of each ran since the last ``step("k")`` (``kinds``); the
+    prefill's final hidden states (either tag). The kind is the function
+    the call runs inside: ``encode`` (the encoder), ``cross_attend`` (the
+    cross-attention, at ``stage`` "prefill" or "decode"),
+    ``prefix_attention`` (its causal or its prefix-block launch), else
+    the decoder's self-attention."""
+
+    SITES = ((flash_ops, "flash_attention"), (transformer, "forward_hidden"),
+             (transformer, "encode"), (transformer, "cross_attend"),
+             (model_blocks, "prefix_attention"))
+    CONTEXTS = ("encode", "cross_attend", "prefix_attention")
+
+    def __init__(self):
+        super().__init__()
+        self.within, self.kinds, self.stage = [], {}, "prefill"
+
+    def step(self, tag):
+        super().step(tag)
+        if tag == "k":
+            self.kinds = {}
+
+    def call_key(self, name, args, kw):
+        where = self.within[-1] if self.within else None
+        kind = {"encode": "encoder",
+                "cross_attend": f"cross, {self.stage}",
+                "prefix_attention": "prefix, causal" if kw.get("causal")
+                else "prefix, block"}.get(where, "decoder self")
+        key = f"{name} ({kind})"
+        self.kinds[key] = self.kinds.get(key, 0) + 1
+        return key
+
+    def _wrap(self, name):
+        if name not in self.CONTEXTS:
+            return super()._wrap(name)
+        fn = self.orig[name]
+
+        def call(*args, **kw):
+            self.within.append(name)
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.within.pop()
+        return call
+
+
+def encdec_kinds(cfg, stage):
+    """``{flash_attention (kind): launches}`` of a prefill or a decode
+    step of ``cfg``."""
+    L, key = cfg.n_layers, "flash_attention ({})".format
+    if cfg.is_prefix_lm:
+        return {key("prefix, causal"): L, key("prefix, block"): L} \
+            if stage == "prefill" else {}
+    if stage == "decode":
+        return {key("cross, decode"): L}
+    return {key("encoder"): cfg.encoder_layers, key("decoder self"): L,
+            key("cross, prefill"): L}
+
+
+def encdec_launches(cfg, stage, what):
+    """The launches since the last reset are ``stage``'s kinds' and none
+    of another kernel."""
+    want = {n: 0 for n in WRAPPERS}
+    want["flash_attention"] = sum(encdec_kinds(cfg, stage).values())
+    got = launch_counts()
+    check(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def encdec_lockstep(cfg, model, batch):
+    """The phase-14 gates: the kernel path and the plain path
+    (``kernels=False``) of ``Model.prefill`` and ``decode_step`` in
+    lockstep on one model, both fed the plain path's greedy tokens: each
+    kind's launches as counted and no other kernel; each kind's first and
+    last call of the prefill and of every step against its plain version;
+    ``kv_len`` equal; the first layer's K/V bit for bit, every layer's,
+    whisper's encoder output and every row of logits within
+    ``ENCDEC_RRMS``; greedy tokens where the margin tests them, at every
+    prompt position too. Returns the counts, the largest differences and
+    the first call of each kind (for its timing)."""
+    m = api.build(cfg)
+    B, S = batch["tokens"].shape[0], prompt_len(cfg, batch)
+    max_len = S + RECURRENT_STEPS + 1
+    res = dict(admits=0, steps=0, rrms=0.0, rrms_at="", tested={}, calls={},
+               rows=0, positions=0, states={}, held={}, enc_kv=None,
+               kinds={}, first_calls={})
+    reqs = list(range(B))
+
+    def gates(shadow, stage, what):
+        encdec_launches(cfg, stage, what)
+        check(shadow.kinds == encdec_kinds(cfg, stage),
+              f"{what}: flash calls by kind {shadow.kinds}, expected "
+              f"{encdec_kinds(cfg, stage)}")
+        for key, n in shadow.kinds.items():
+            res["kinds"][key] = res["kinds"].get(key, 0) + n
+            res["first_calls"].setdefault(key, shadow.calls[key][0])
+        check_serve_calls(shadow, res, what)
+
+    with EncdecShadow() as shadow:
+        reset_launch_counts()
+        shadow.step("k")
+        hk, ck = m.prefill(model, batch, max_len, kernels=True)
+        shadow.step("p")
+        hp, cp = m.prefill(model, batch, max_len, kernels=False)
+        shadow.tag = None
+        what = f"{cfg.name} prefill"
+        gates(shadow, "prefill", what)
+        prompt_margins(cfg, model, shadow, [S] * B, reqs, res, what)
+        same(ck.kv_len, cp.kv_len, f"{what}: kv_len")
+        check_model_states(cfg, ck, cp, res, what, ENCDEC_RRMS)
+        for a, b in zip(ck.enc_kv, cp.enc_kv):
+            check(a.shape == (B, cfg.encoder_seq, cfg.d_model)
+                  and bool(torch.isfinite(a.float()).all()),
+                  f"{what}: the encoder output {tuple(a.shape)} is not "
+                  f"finite at full length")
+            res["enc_kv"] = rms(a.float() - b.float()) / rms(b)
+            check(res["enc_kv"] <= ENCDEC_RRMS["enc_kv"],
+                  f"{what}: the encoder output's relative RMS difference "
+                  f"{res['enc_kv']:.4g} > {ENCDEC_RRMS['enc_kv']}")
+        lk, lp = (transformer.lm_head(h, model.embed, cfg.logit_softcap)
+                  for h in (hk, hp))
+        rrms_gate(lk, lp, reqs, res, what, ENCDEC_RRMS["logits"])
+        res["admits"] += 1
+        tok = lp.argmax(dim=-1).to(torch.int32)
+        shadow.stage = "decode"
+        for step in range(RECURRENT_STEPS):
+            what = f"{cfg.name} step {step + 1}"
+            reset_launch_counts()
+            shadow.step("k")
+            lk, ck = m.decode_step(model, ck, tok, kernels=True)
+            shadow.step("p")
+            lp, cp = m.decode_step(model, cp, tok, kernels=False)
+            shadow.tag = None
+            gates(shadow, "decode", what)
+            same(ck.kv_len, cp.kv_len, f"{what}: kv_len")
+            check_model_states(cfg, ck, cp, res, what, ENCDEC_RRMS)
+            margin_gate(lk, lp, reqs, reqs, res, what)
+            rrms_gate(lk, lp, reqs, res, what, ENCDEC_RRMS["logits"])
+            tok = lp.argmax(dim=-1).to(torch.int32)
+            res["steps"] += 1
+    del ck, cp
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_kind_times(first_calls, smi, label):
+    """Each kind's first call of the lockstep relaunched with CUDA events
+    (the GPU held while they queue), beside its bound, its plain version
+    and SDPA on the same inputs; returns ``{kind: record}``."""
+    out = {}
+    for key, (args, kw, ker_out) in first_calls.items():
+        q, k, v = args
+        causal = kw.get("causal", True)
+        launch = flash_ops.prepare(q, k, v, **kw)
+        launch()
+        time_events(launch, ENCDEC_REPS, hold=True)   # warm-up, not kept
+        ms = time_events(launch, ENCDEC_REPS, hold=True)
+        plain_ms = time_events(lambda: flash_ref.flash_attention_ref(
+            q, k, v, **kw), 2)
+        qt, kt, vt = (t.transpose(1, 2) for t in args)
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - ker_out.float()).abs().max())
+        lib()
+        lib_ms = time_events(lib, ENCDEC_REPS, hold=True)
+        n_bytes, op_s = serve_call_work("flash_attention", args, kw)
+        bound_ms, bound_by = serve_bound(n_bytes, op_s)
+        B, Sq, Hq, D = q.shape
+        print(f"{label}: {key}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+              f"causal {causal}: {ms:.4f} ms a call (CUDA events, GPU held, "
+              f"{ENCDEC_REPS} launches), bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flash_pairs(Sq, k.shape[1], causal, None)} "
+              f"visible pairs a head, {n_bytes / 1e6:.3f} MB), "
+              f"{100 * bound_ms / ms:.1f} % of it; SDPA {lib_ms:.4f} ms "
+              f"(max abs {lib_err:.3g} from the kernel); plain "
+              f"{plain_ms:.4f} ms | {smi}", flush=True)
+        out[key.split("(")[1][:-1]] = dict(
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            plain_ms=plain_ms, library_max_abs_diff=lib_err,
+            shape=dict(q=list(q.shape), k=list(k.shape), causal=causal))
+    return out
+
+
+def encdec_batch(cfg, seed, dev):
+    """Phase 14's traffic for ``cfg``: ``ENCDEC_B`` prompts of
+    ``ENCDEC_PROMPT`` tokens and the stub frontend's embeddings."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (ENCDEC_B, ENCDEC_PROMPT[cfg.name]), generator=gen,
+        device=dev, dtype=torch.int32)}
+    for name, n, on in (("frames", cfg.encoder_seq, cfg.is_encdec),
+                        ("patches", cfg.prefix_len, cfg.is_prefix_lm)):
+        if on:
+            batch[name] = (0.1 * torch.randn(
+                ENCDEC_B, n, cfg.d_model, generator=gen, device=dev)) \
+                .to(cfg.param_dtype)
+    return batch
+
+
+def encdec_model(arch, seed, dev):
+    """``arch`` at full width and depth, bf16 weights from ``seed``, and
+    its traffic."""
+    cfg = get_arch(arch)
+    model = api.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return cfg, model, encdec_batch(cfg, seed, dev)
+
+
+def run_encdec_model(args, dev, smi, arch, phase8):
+    """Phase 14 for one model: the lockstep, then both paths timed."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, batch = encdec_model(arch, args.seed + 14, dev)
+    n_weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers"
+          + (f" and {cfg.encoder_layers} encoder layers over "
+             f"{cfg.encoder_seq} frames" if cfg.is_encdec else
+             f" behind {cfg.prefix_len} patches")
+          + f", weights {n_weights / 1e9:.3f} GB (bf16, random from the "
+          f"seed), {ENCDEC_B} prompts of {ENCDEC_PROMPT[arch]} tokens, "
+          f"{RECURRENT_STEPS} steps", flush=True)
+    res = encdec_lockstep(cfg, model, batch)
+    short = [r for r in range(ENCDEC_B) if res["tested"].get(r, 0) < 1]
+    check(not short, f"{cfg.name}: prompts {short} have no position whose "
+                     f"margin tests the greedy token")
+    launches = sum(res["kinds"].values())
+    print(f"{cfg.name} lockstep: flash_attention launches by kind "
+          f"{res['kinds']} (a prefill {encdec_kinds(cfg, 'prefill')}, a "
+          f"step {encdec_kinds(cfg, 'decode')}), no other kernel; kv_len "
+          f"equal; kernel calls against their plain versions "
+          f"{res['calls']}; the first layer's K/V bit-identical, every "
+          f"layer's relative RMS difference max {res['states']} over "
+          f"{res['held']} layer checks"
+          + (f", the encoder output's {res['enc_kv']:.4g}"
+             if res["enc_kv"] is not None else "")
+          + f" (limits {ENCDEC_RRMS}); logits' relative RMS difference max "
+          f"{res['rrms']:.4g} (at {res['rrms_at']}) over {res['rows']} "
+          f"rows; greedy tokens equal at {sum(res['tested'].values())} of "
+          f"{res['positions']} positions the margin tests (per prompt "
+          f"{[res['tested'].get(r, 0) for r in range(ENCDEC_B)]}) | {smi}",
+          flush=True)
+    rec = dict(launches=launches, launches_by_kind=res["kinds"],
+               kinds=flash_kind_times(res["first_calls"], smi, cfg.name))
+    del res
+    for kernels in (True, False):
+        key = "kernels" if kernels else "plain"
+        t = model_timed(cfg, model, batch, kernels,
+                        ("flash_attention",) if kernels else ())
+        rec[f"{key}_prefill_ms"] = t["prefill_ms"][-1]
+        rec[f"{key}_step_ms"] = print_model_times(f"{cfg.name}, {key}", t,
+                                                  smi)
+        if kernels:
+            record_kernel_times(cfg.name, t, ("flash_attention",),
+                                {"flash_attention": rec}, phase8, smi)
+    print(f"{cfg.name}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          f"{time.perf_counter() - t0:.2f} s | {smi}", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+@torch.no_grad()
+def run_encdec_phase(args, dev, smi, lm_records):
+    """Phase 14: the encoder-decoder and prefix-LM models through
+    ``Model.prefill`` / ``decode_step``. Returns ``flash_attention``'s
+    record of each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase8 = {r["name"]: r for r in lm_records}
+    return {arch: run_encdec_model(args, dev, smi, arch, phase8)
+            for arch in ENCDEC_PROMPT}
 
 
 # -------------------------------------------------------------- main ----
@@ -4207,6 +4512,17 @@ def main(argv=None):
         by_path["serve"] = by_path.get("serve", 0) + rec["launches"]
         k.setdefault("serve", {})["jamba-v0.1-52b"] = rec
     print(f"recurrent phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 14. the encoder-decoder and prefix-LM models ---------------------
+    t0 = time.perf_counter()
+    encdec = run_encdec_phase(args, dev, smi, lm)
+    for k in kernels:
+        if k["name"] != "flash_attention":
+            continue
+        for arch, rec in encdec.items():
+            k["launches_by_path"]["serve"] += rec["launches"]
+            k["serve"][arch] = rec
+    print(f"encoder-decoder phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB; {time.perf_counter() - t_start:.2f} s in all")

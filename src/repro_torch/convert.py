@@ -28,13 +28,16 @@ are viewed as ``torch.bfloat16`` on the other side.
 ``lm_params_from_numpy`` builds the port's ``Transformer`` from the
 reference's ``init_params`` tree (numpy leaves, stacked over pattern units
 on a leading axis: ``u{p}/attn/wq[u]`` becomes ``layers.{u·unit_len +
-p}.attn.wq``), and ``lm_params_to_numpy`` gives the tree back (bfloat16
-leaves as float32, exactly); leaves the reference keeps in float32 (norm
-scales, the router, the recurrent layers' gates and SSM constants) stay
-float32. ``decode_cache_from_numpy`` and ``decode_cache_to_numpy`` carry
-a ``DecodeCache`` across the same way: the reference's slot of each
-pattern-unit position, its K/V or recurrent state stacked over units, ↔
-the port's one slot a layer.
+p}.attn.wq``; the encoder's layers, stacked over ``encoder_layers``,
+become ``encoder.layers.{j}``, and ``cross/attn/wq[i]``, stacked over
+every layer, ``cross.{i}.attn.wq``), and ``lm_params_to_numpy`` gives
+the tree back (bfloat16 leaves as float32, exactly); leaves the reference
+keeps in float32 (norm scales, the router, the recurrent layers' gates
+and SSM constants) stay float32. ``decode_cache_from_numpy`` and
+``decode_cache_to_numpy`` carry a ``DecodeCache`` across the same way:
+the reference's slot of each pattern-unit position, its K/V or recurrent
+state stacked over units, ↔ the port's one slot a layer; ``enc_kv`` as
+it is.
 """
 from __future__ import annotations
 
@@ -159,16 +162,29 @@ def snapshot_log_to_numpy(log: gc.SnapshotLog) -> gc.SnapshotLog:
     return _to_np(log)
 
 
+def _lm_place(name: str, unit_len: int):
+    """(path in the reference's tree, index on its stacked axis or None)
+    of state-dict key ``name``: ``layers.{i}`` is ``u{i % unit_len}``
+    at ``i // unit_len``, ``cross.{i}`` is ``cross`` at ``i`` and
+    ``encoder.layers.{j}`` is ``encoder/layers`` at ``j``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        i = int(parts[1])
+        return [f"u{i % unit_len}"] + parts[2:], i // unit_len
+    if parts[0] == "cross":
+        return parts[:1] + parts[2:], int(parts[1])
+    if parts[:2] == ["encoder", "layers"]:
+        return parts[:2] + parts[3:], int(parts[2])
+    return parts, None
+
+
 def _lm_leaf(tree, name: str, unit_len: int):
     """The reference leaf of state-dict key ``name``."""
-    parts = name.split(".")
-    if parts[0] != "layers":
-        return np.asarray(tree[name])
-    i = int(parts[1])
-    leaf = tree[f"u{i % unit_len}"]
-    for part in parts[2:]:
-        leaf = leaf[part]
-    return np.asarray(leaf)[i // unit_len]
+    path, i = _lm_place(name, unit_len)
+    for part in path:
+        tree = tree[part]
+    leaf = np.asarray(tree)
+    return leaf if i is None else leaf[i]
 
 
 def lm_params_from_numpy(cfg, tree, device="cpu", *,
@@ -187,19 +203,18 @@ def lm_params_from_numpy(cfg, tree, device="cpu", *,
 
 def lm_params_to_numpy(model: Transformer) -> dict:
     """The reference's tree of the port's ``Transformer``: numpy leaves
-    stacked over pattern units, bfloat16 as float32."""
+    stacked as the reference stacks them, bfloat16 as float32."""
     ul = model.cfg.unit_len
     tree = {}
     for name, t in model.state_dict().items():
-        parts = name.split(".")
-        if parts[0] != "layers":
-            tree[name] = tensor_to_numpy(t)
-            continue
-        i = int(parts[1])
-        node = tree.setdefault(f"u{i % ul}", {})
-        for part in parts[2:-1]:
+        path, i = _lm_place(name, ul)
+        node = tree
+        for part in path[:-1]:
             node = node.setdefault(part, {})
-        node.setdefault(parts[-1], {})[i // ul] = tensor_to_numpy(t)
+        if i is None:
+            node[path[-1]] = tensor_to_numpy(t)
+        else:
+            node.setdefault(path[-1], {})[i] = tensor_to_numpy(t)
     return _stack_units(tree)
 
 
@@ -238,7 +253,9 @@ def decode_cache_from_numpy(cfg, cache, device="cpu") -> DecodeCache:
         f: field(getattr(cache.slots[i % ul], f), f, i // ul)
         for f in LayerCacheSlot._fields}) for i in range(cfg.n_layers))
     return DecodeCache(slots=slots,
-                       kv_len=tensor_from_numpy(cache.kv_len, device))
+                       kv_len=tensor_from_numpy(cache.kv_len, device),
+                       enc_kv=tuple(tensor_from_numpy(np.asarray(a), device)
+                                    for a in cache.enc_kv))
 
 
 def decode_cache_to_numpy(cfg, cache: DecodeCache) -> DecodeCache:
@@ -259,4 +276,6 @@ def decode_cache_to_numpy(cfg, cache: DecodeCache) -> DecodeCache:
     slots = tuple(LayerCacheSlot(**{
         f: stack([getattr(s, f) for s in cache.slots[p::ul]], f)
         for f in LayerCacheSlot._fields}) for p in range(ul))
-    return DecodeCache(slots=slots, kv_len=tensor_to_numpy(cache.kv_len))
+    return DecodeCache(slots=slots, kv_len=tensor_to_numpy(cache.kv_len),
+                       enc_kv=tuple(tensor_to_numpy(t)
+                                    for t in cache.enc_kv))

@@ -26,6 +26,9 @@ class Model:
         return transformer.init_params(self.cfg, generator, device, dtype)
 
     def prefill(self, params, batch, max_len: int, kernels=True):
+        """``batch``: ``tokens`` [B, S], and ``frames`` [B, encoder_seq,
+        D] (encoder-decoder) or ``patches`` [B, prefix_len, D]
+        (prefix-LM), the stub frontends' embeddings."""
         return transformer.prefill(self.cfg, params, batch, max_len,
                                    kernels)
 

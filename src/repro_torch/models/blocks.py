@@ -10,15 +10,15 @@ reference's ``u{p}/attn/wq[u]`` for layer ``i = u·unit_len + p``):
   moe: router [D, E], w_gate/w_in [E, D, F], w_out [E, F, D]
   mamba, mlstm, slstm: ``models/recurrent.py``
 
-Cross-attention and ``kv_override`` wait for slice F2b (the
-encoder-decoder path) and raise ``NotImplementedError``.
+The cross-attention (``init_cross_attn``) is an :class:`Attention`;
+:func:`attn_forward` takes its precomputed encoder memory as
+``kv_override``.
 
-On the card, :func:`attn_forward` over the positions ``0..S-1`` of every
-row (``positions=None``), causal, with no ``prefix_len``, runs the
-``flash_attention`` kernel, a mamba layer's prefill the ``mamba_scan``
-kernel and a MoE layer's experts the ``moe_gmm`` kernel; every other call
-runs the plain versions. ``kernels=False`` keeps the card on the plain
-path.
+On the card, :func:`attn_forward` runs the ``flash_attention`` kernel
+where the kernel's mask is the call's (:func:`attn_forward` says where),
+a mamba layer's prefill the ``mamba_scan`` kernel and a MoE layer's
+experts the ``moe_gmm`` kernel; every other call runs the plain
+versions. ``kernels=False`` keeps the card on the plain path.
 """
 from __future__ import annotations
 
@@ -59,34 +59,81 @@ def init_attn(cfg: ArchConfig, dtype, *, generator, device=None):
     return Attention(cfg, dtype, device, generator)
 
 
+def prefix_attention(q, k, v, prefix_len: int, *, softcap=None,
+                     attend=None):
+    """The prefix-LM mask over q [B, S, Hq, D] and k, v [B, S, Hkv, D] at
+    the positions ``0..S-1``, without a window, as two calls of
+    ``attend`` (by default ``flash_ops.flash_attention``): a causal one
+    over all S rows, and a non-causal one over the first P =
+    ``prefix_len`` rows and keys, whose output takes those rows' place
+    in a new tensor (neither call's output is written over). The
+    reference's mask ``(dk <= dq) | (dk < P)`` shows a row below P
+    exactly the keys below P and a row at P or above exactly the keys up
+    to itself, which the causal call gives it (its mask is aligned at the
+    top left, so it runs over all rows)."""
+    attend = attend or flash_ops.flash_attention
+    o = attend(q, k, v, causal=True, softcap=softcap)
+    P = min(prefix_len, q.shape[1])
+    if P <= 0:
+        return o
+    head = attend(*(t[:, :P].contiguous() for t in (q, k, v)),
+                  causal=False, softcap=softcap)
+    return torch.cat([head, o[:, P:]], dim=1)
+
+
 def attn_forward(p, x, positions, cfg: ArchConfig, *, window, causal=True,
                  prefix_len=None, kv_override=None, chunk=512, kernels=True):
     """Full-sequence attention (train / prefill). Returns (y, (k, v)).
 
-    ``positions`` [B, S], or None for ``0..S-1`` in every row: only then
-    may a causal call without ``prefix_len`` on the card run the flash
-    kernel."""
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention (kv_override) waits for "
-                                  "slice F2b (the encoder-decoder path)")
+    ``positions`` [B, S], or None for ``0..S-1`` in every row.
+    ``kv_override`` ``(k, v, pos_k)``: the cross-attention's precomputed
+    memory, k and v [B, Sk, Hkv, Dh] (not roped) at ``pos_k`` [B, Sk], or
+    at ``0..Sk-1`` where ``pos_k`` is None. ``prefix_len``: [B], or a
+    Python int for every row.
+
+    On the card the flash kernel runs where the key positions are
+    ``0..Sk-1`` (``positions`` None, or ``pos_k`` None under
+    ``kv_override``) and the call is causal with ``positions`` None and
+    no ``prefix_len``, or causal with an int ``prefix_len``, no window and
+    ``positions`` None (:func:`prefix_attention`), or non-causal without
+    a window or ``prefix_len`` (positions then enter through rope
+    alone)."""
     B, S, D = x.shape
     Dh = cfg.d_head
     arange = positions is None
     if arange:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q = (x @ p.wq).reshape(B, S, cfg.n_heads, Dh)
-    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, Dh)
-    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, Dh)
-    k = common.rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, Dh)
+        v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, Dh)
+        k = common.rope(k, positions, cfg.rope_theta)
+        pos_k, keys_arange = positions, arange
+    else:   # cross-attention: the precomputed encoder memory
+        k, v, pos_k = kv_override
+        keys_arange = pos_k is None
+        if keys_arange:
+            Sk = k.shape[1]
+            pos_k = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
     q = common.rope(q, positions, cfg.rope_theta)
-    if kernels and x.is_cuda and arange and causal and prefix_len is None:
+    card = kernels and x.is_cuda and keys_arange
+    cap = cfg.attn_softcap
+    if card and causal and arange and prefix_len is None:
         o = flash_ops.flash_attention(q, k, v, causal=True, window=window,
-                                      softcap=cfg.attn_softcap)
+                                      softcap=cap)
+    elif card and causal and arange and isinstance(prefix_len, int) \
+            and window is None:
+        o = prefix_attention(q, k, v, prefix_len, softcap=cap)
+    elif card and not causal and window is None and prefix_len is None:
+        o = flash_ops.flash_attention(q, k, v, causal=False, softcap=cap)
     else:
+        if isinstance(prefix_len, int):
+            prefix_len = torch.full((B,), prefix_len, dtype=torch.int32,
+                                    device=x.device)
         o = common.chunked_attention(
-            q, k, v, positions_q=positions, positions_k=positions,
+            q, k, v, positions_q=positions, positions_k=pos_k,
             causal=causal, window=window, prefix_len=prefix_len,
-            attn_cap=cfg.attn_softcap, chunk=min(chunk, S))
+            attn_cap=cap, chunk=min(chunk, k.shape[1]))
     y = o.reshape(B, S, cfg.n_heads * Dh) @ p.wo
     return y, (k, v)
 
@@ -110,6 +157,10 @@ def attn_decode(p, x, k_cache, v_cache, kv_len, cfg: ArchConfig, *, window):
                                 window=window, attn_cap=cfg.attn_softcap)
     y = o.reshape(B, 1, cfg.n_heads * Dh) @ p.wo
     return y, (k_cache, v_cache)
+
+
+def init_cross_attn(cfg: ArchConfig, dtype, *, generator, device=None):
+    return init_attn(cfg, dtype, generator=generator, device=device)
 
 
 # ----------------------------------------------------------------- MLP ----

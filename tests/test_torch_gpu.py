@@ -42,7 +42,8 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.tolerance import F32_PLAIN_ATOL_RMS, \
     F32_PLAIN_RTOL, LM_TOL, MAMBA_TOL
 from repro_torch.kernels import _build
-from repro_torch.models import moe, recurrent, transformer
+from repro_torch.models import api, blocks, common, moe, recurrent, \
+    transformer
 from repro_torch.serve import engine, kvcache as kvc
 
 
@@ -1864,3 +1865,124 @@ def test_missing_kernel_library_raises_on_the_serve_path(monkeypatch):
     st = plain.admit(plain.init_state(), _serve_prompts(3, 2, cfg.vocab))
     with pytest.raises(RuntimeError, match="no kernel library"):
         eng.decode_step(st)
+
+
+# ------------------------------------ the encoder-decoder and prefix-LM ----
+# flash attention at the shapes of whisper-medium and paligemma-3b (two
+# rows): B, Sq, Sk, Hq, Hkv, D, causal
+ENCDEC_FLASH_CASES = {
+    "whisper_encoder": (2, 1500, 1500, 16, 16, 64, False),
+    "whisper_cross_decode": (2, 1, 1500, 16, 16, 64, False),
+    "paligemma_prefix_block": (2, 256, 256, 8, 1, 256, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("case", list(ENCDEC_FLASH_CASES))
+def test_flash_kernel_at_encdec_shapes_on_card(case, dtype):
+    """Non-causal attention over whisper's 1,500 frames (every query row,
+    and one query row as a decode step's cross-attention asks) and over
+    paligemma's 256-patch prefix (8 query heads over one KV head, D =
+    256): one launch, held against the plain version (and, in bf16, the
+    plain version on float32 copies)."""
+    dev = _cuda()
+    B, Sq, Sk, Hq, Hkv, D, causal = ENCDEC_FLASH_CASES[case]
+    q, k, v = (_f(a, dtype, dev) for a in flash_inputs(B, Sq, Sk, Hq, Hkv,
+                                                         D))
+    before = flash_ops.flash_attention.launches
+    out = flash_ops.flash_attention(q, k, v, causal=causal)
+    assert flash_ops.flash_attention.launches == before + 1
+    plain = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(out, plain, LM_TOL[dtype], case)
+    if dtype == "bfloat16":
+        _held_to_f32_plain(out, flash_attention_ref(
+            q.float(), k.float(), v.float(), causal=causal), case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+@pytest.mark.parametrize("P", [1, 100, 256, 300])
+def test_prefix_attention_on_card_matches_plain(P, dtype):
+    """The prefix-LM mask as two launches of the kernel (causal over all
+    288 rows, non-causal over the first P) against the same composition
+    of the plain versions and against ``chunked_attention`` with
+    ``prefix_len`` P; P = 300 passes the sequence (one launch's rows
+    overwritten whole)."""
+    dev = _cuda()
+    B, S, Hq, Hkv, D = 2, 288, 8, 1, 128
+    q, k, v = (_f(a, dtype, dev) for a in flash_inputs(B, S, S, Hq, Hkv, D))
+    before = flash_ops.flash_attention.launches
+    out = blocks.prefix_attention(q, k, v, P)
+    assert flash_ops.flash_attention.launches == before + 2
+    plain = blocks.prefix_attention(q, k, v, P, attend=flash_attention_ref)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    masked = common.chunked_attention(
+        q, k, v, positions_q=pos, positions_k=pos, causal=True,
+        prefix_len=torch.full((B,), P, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    _close(out, plain, LM_TOL[dtype], f"P={P} against the composition")
+    _close(out, masked, LM_TOL[dtype], f"P={P} against the mask")
+
+
+def _encdec_batch(cfg, dev, dtype, B=2, S=6, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(2, cfg.vocab, (B, S), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    for name, n, on in (("frames", cfg.encoder_seq, cfg.is_encdec),
+                        ("patches", cfg.prefix_len, cfg.is_prefix_lm)):
+        if on:
+            batch[name] = (0.1 * torch.randn(B, n, cfg.d_model,
+                                             generator=gen, device=dev)) \
+                .to(dtype)
+    return batch
+
+
+def _rel_rms(a, b):
+    d = a.float() - b.float()
+    return float(d.pow(2).mean().sqrt() / b.float().pow(2).mean().sqrt())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aid", ["whisper-medium", "paligemma-3b"])
+def test_encdec_model_kernel_path_matches_plain_on_card(aid):
+    """Reduced whisper (2 encoder layers over 16 frames) and
+    paligemma (8 patches) in bf16 through ``Model.prefill`` and 4
+    ``decode_step`` s with the kernels against ``kernels=False``, both on
+    the plain path's greedy tokens: ``flash_attention`` launches per
+    encoder layer, decoder self-attention and cross-attention a prefill
+    and per cross-attention a step (whisper), or twice a layer a prefill
+    and never a step (paligemma); the hidden state, every layer's K/V,
+    ``enc_kv`` and the logits within a relative RMS of 0.05, ``kv_len``
+    equal."""
+    dev = _cuda()
+    cfg, model = _serve_model(aid, dev)
+    m = api.build(cfg)
+    batch = _encdec_batch(cfg, dev, model.embed.dtype)
+    L = cfg.n_layers
+    pre, step = (cfg.encoder_layers + 2 * L, L) if cfg.is_encdec \
+        else (2 * L, 0)
+    with torch.no_grad():
+        before = flash_ops.flash_attention.launches
+        hk, ck = m.prefill(model, batch, 16)
+        assert flash_ops.flash_attention.launches == before + pre
+        hp, cp = m.prefill(model, batch, 16, kernels=False)
+        assert flash_ops.flash_attention.launches == before + pre
+        assert _rel_rms(hk, hp) <= 0.05
+        for a, b in zip(ck.enc_kv, cp.enc_kv):
+            assert _rel_rms(a, b) <= 0.05
+        tok = transformer.lm_head(hp, model.embed, cfg.logit_softcap) \
+            .argmax(-1).to(torch.int32)
+        for _ in range(4):
+            before = flash_ops.flash_attention.launches
+            lk, ck = m.decode_step(model, ck, tok)
+            assert flash_ops.flash_attention.launches == before + step
+            lp, cp = m.decode_step(model, cp, tok, kernels=False)
+            assert torch.equal(ck.kv_len, cp.kv_len)
+            _logits_close(lk, lp, list(range(lk.shape[0])))
+            for sk, sp in zip(ck.slots, cp.slots):
+                assert _rel_rms(sk.k, sp.k) <= 0.05
+                assert _rel_rms(sk.v, sp.v) <= 0.05
+            tok = lp.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()

@@ -214,20 +214,22 @@ def test_attn_forward_and_decode_match_reference(aid, window):
 
 
 def test_kv_override_and_recurrent_kinds_wait_for_slice_f2():
-    _, _, pcfg, model = _model("granite-3-8b")
-    x = torch.zeros(1, 4, pcfg.d_model)
-    with pytest.raises(NotImplementedError, match="F2"):
-        blocks.attn_forward(model.layers[0].attn, x, None, pcfg, window=None,
-                            kv_override=(x, x, None))
-    for aid in ("whisper-medium", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="F2"):
-            transformer.Transformer(reduced(get_arch(aid)), device="cpu")
-    # the recurrent and hybrid models are ported: they build
-    for aid in ("jamba-v0.1-52b", "xlstm-350m"):
-        cfg = reduced(get_arch(aid))
-        m = transformer.Transformer(cfg, device="cpu")
+    """Slices F2a and F2b are ported: every architecture (the recurrent,
+    hybrid, encoder-decoder and prefix-LM ones too) builds with the
+    reference's parameter tree, leaf for leaf and shape for shape, and
+    its layers in the reference's unit order."""
+    for aid in ARCH_IDS:
+        jcfg, pcfg = _configs(aid)
+        params = jax.tree.map(np.asarray, jt.init_params(
+            jcfg, jax.random.PRNGKey(0)))
+        m = convert.lm_params_from_numpy(pcfg, params, "cpu")
         assert [layer.spec for layer in m.layers] \
-            == cfg.unit() * cfg.n_units
+            == pcfg.unit() * pcfg.n_units, aid
+        back = convert.lm_params_to_numpy(m)
+        assert jax.tree.structure(back) == jax.tree.structure(params), aid
+        assert jax.tree.map(np.shape, back) == jax.tree.map(np.shape,
+                                                            params), aid
+        assert hasattr(m, "encoder") == pcfg.is_encdec, aid
 
 
 @pytest.mark.parametrize("aid", ["gemma2-27b", "granite-3-8b",
