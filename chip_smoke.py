@@ -6,7 +6,8 @@ against their plain PyTorch versions.
                           [--seed 0] [--profile-rounds 4] [--lm-reps 20]
                           [--durable-rounds 8] [--shards 4]
                           [--shard-rounds 8] [--oracle-rounds 32]
-                          (phases 12-14, the LM models, take --seed)
+                          (phases 12-15, the LM models and training,
+                          take --seed)
 
 Phases, each fatal on failure:
 
@@ -251,7 +252,31 @@ Phases, each fatal on failure:
    beside its bound, its plain version and SDPA on the same inputs, and
    both paths run the traffic alone, timed (prefill ms, the median decode
    step, idle share, host syncs), with the kernel's device time a call
-   beside its bound.
+   beside its bound;
+15. training (phase 14's models freed first; deterministic algorithms on
+   for this phase alone, with ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA
+   starts). (a) granite-3-8b at full width (d 4,096, 32 heads over 8 KV
+   heads of 128, d_ff 12,800, vocab 49,155), 8 of its 40 layers, bf16
+   weights from ``--seed`` (1.80 B parameters): 24 steps of
+   ``train.trainstep.make_train_step`` (``DataConfig(vocab=49155,
+   seq_len=1024, global_batch=8)``, 2 microbatches, the ``baseline``
+   policy's ``nothing_saveable`` remat, ``AdamWConfig(lr=3e-4,
+   warmup_steps=8, total_steps=24)``): every loss and gradient norm
+   finite, the mean of the last 4 losses below the first, and no LM
+   kernel launched (the train step differentiates the plain path); it
+   prints the median step, tokens/s, the matrix products' flops against
+   the bf16 peak, ``max_memory_allocated``, and over 2 profiled steps the
+   idle share, host syncs a step and the device time of the matrix
+   products, the plain attention, the cross-entropy and the optimizer.
+   (b) One float32 layer at the same width, B = 2, S = 128, TF32 off: the
+   loss and every gradient leaf on the card against the host CPU, and 2
+   microbatches against 1 on the card, within ``TRAIN_UNIT_RRMS``; the
+   three remat policies bit-identical to no remat on the card; the CPU's
+   pass runs on a second host thread while (c) runs. (c)
+   ``examples/train_lm_torch.py``'s scenario at its 10m preset (60 steps,
+   a checkpoint every 20, a failure at 35 recovered from the checkpoint
+   and the journal): the recovered parameters equal the uninterrupted
+   run's bit for bit.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -264,6 +289,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -273,7 +299,11 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# deterministic cuBLAS for phase 15's exact recovery: read when CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -309,6 +339,10 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
+from repro_torch import policy as perf_policy  # noqa: E402
+from repro_torch.data import pipeline as train_data  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
+from repro_torch.train import trainstep  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the FP32 rate
 # outside the tensor cores, taken as the rate of 32-bit integer work
@@ -3280,6 +3314,7 @@ def record_kernel_times(label, t, names, recs, phase8, smi):
                   + f" | {smi}", flush=True)
 
 
+@torch.no_grad()
 def run_serve_phase(args, dev, smi, lm_records):
     """Phase 12 over ``SERVE_CONFIGS``; returns each serve kernel's
     launches and per-call times by config."""
@@ -4112,6 +4147,434 @@ def run_encdec_phase(args, dev, smi, lm_records):
             for arch in ENCDEC_PROMPT}
 
 
+# ----------------------------------------------------------- training ----
+# phase 15: granite-3-8b at full width (d 4,096, 32 heads over 8 KV heads
+# of 128, d_ff 12,800, vocab 49,155), TRAIN_LAYERS of its 40 layers, bf16
+# weights from --seed; the data, step and optimizer settings of the issue
+# that sized it (8 sequences of 1,024 tokens in 2 microbatches, baseline
+# policy: nothing_saveable)
+TRAIN_ARCH = "granite-3-8b"
+TRAIN_LAYERS = 8
+TRAIN_DATA = dict(seq_len=1024, global_batch=8)
+TRAIN_MICRO = 2
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=8, total_steps=24)
+TRAIN_STEPS = 24
+TRAIN_PROFILE_STEPS = 2
+# (b) one float32 layer at the same width, B = 2, S = 128, on the card and
+# on the host CPU with the same weights and batch: the loss and every
+# gradient leaf within this relative RMS difference, about twice the
+# larger reading of seeds 0 and 1 (2.442e-6 and 2.367e-6, the CPU's pass
+# on all but two host threads; PERF.md §6, scripts/lockstep_seeds.py
+# --phase 15 0 1); the microbatched gradients against one batch on the
+# card within the same limit (1.209e-6 and 1.237e-6)
+TRAIN_UNIT = dict(seq_len=128, global_batch=2)
+TRAIN_UNIT_RRMS = 5e-6
+# (c) examples/train_lm_torch.py's scenario at its 10m preset
+RECOVERY = dict(steps=60, fail_at=35, preset="10m", ckpt_every=20)
+# the device time a train step spends in each of these (the plain
+# attention, the cross-entropy and the optimizer), forward, recompute and
+# backward
+TRAIN_RANGES = {"attention": (model_common, "chunked_attention"),
+                "cross-entropy": (model_common, "chunked_cross_entropy"),
+                "optimizer": (train_opt, "apply")}
+# matrix-product kernels as cuBLAS and CUTLASS name them
+GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
+
+
+class TrainRanges:
+    """While active, each function of ``TRAIN_RANGES`` runs inside a
+    ``record_function`` range of its label."""
+
+    def __enter__(self):
+        self.saved = {}
+        for label, (mod, name) in TRAIN_RANGES.items():
+            fn = getattr(mod, name)
+            self.saved[label] = fn
+
+            def ranged(*a, _fn=fn, _label=label, **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+            setattr(mod, name, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, name) in TRAIN_RANGES.items():
+            setattr(mod, name, self.saved[label])
+
+
+def _labels_of(cpu, labels):
+    """The label of each host event of the raw trace ``cpu``: its nearest
+    enclosing ``labels`` range, or, in the backward pass, the range its
+    forward operator ran under (matched by thread and autograd sequence
+    number), else None. Nesting is rebuilt per thread from the events'
+    intervals."""
+    parent = [-1] * len(cpu)
+    threads = {}
+    for i, e in enumerate(cpu):
+        threads.setdefault(e.start_thread_id(), []).append(i)
+    for idx in threads.values():
+        idx.sort(key=lambda i: (cpu[i].start_ns(), -cpu[i].end_ns()))
+        stack = []
+        for i in idx:
+            while stack and cpu[stack[-1]].end_ns() <= cpu[i].start_ns():
+                stack.pop()
+            parent[i] = stack[-1] if stack else -1
+            stack.append(i)
+    names = [e.name() for e in cpu]
+    order = sorted(range(len(cpu)), key=lambda i: cpu[i].start_ns())
+    rng = [None] * len(cpu)          # the nearest enclosing range
+    for i in order:
+        p = parent[i]
+        rng[i] = names[i] if names[i] in labels else (
+            rng[p] if p >= 0 else None)
+    fwd = {(cpu[i].start_thread_id(), cpu[i].sequence_nr()): rng[i]
+           for i in range(len(cpu)) if rng[i] and cpu[i].sequence_nr() >= 0
+           and not names[i].startswith("autograd::")}
+    label = [None] * len(cpu)
+    for i in order:
+        if names[i] in labels:
+            label[i] = names[i]
+            continue
+        if names[i].startswith("autograd::engine::evaluate_function"):
+            e = cpu[i]
+            hit = fwd.get((e.fwd_thread_id() or e.start_thread_id(),
+                           e.sequence_nr()))
+            if hit:
+                label[i] = hit
+                continue
+        p = parent[i]
+        label[i] = label[p] if p >= 0 else None
+    return label
+
+
+def train_profile(fn):
+    """``fn`` under the profiler with :class:`TrainRanges`: the wall time,
+    the device's busy time, the matrix products' device time, each
+    range's device time (a kernel counts for the label of the host event
+    that launched it, :func:`_labels_of`) with its three costliest
+    kernels, and the host syncs, all in us.
+    It reads the raw trace: building the profiler's event tree takes
+    longer than the steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with TrainRanges(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.profiler.kineto_results.events()
+    cpu = [e for e in events if e.device_type() != DeviceType.CUDA]
+    label = _labels_of(cpu, set(TRAIN_RANGES))
+    by_corr = {e.correlation_id(): label[i] for i, e in enumerate(cpu)
+               if e.correlation_id()}
+    busy = gemm = 0.0
+    ranges, kernels = {}, {}
+    syncs = {"sync calls": -2, "device reads": 0, "DtoH copies": 0}
+    for e in events:
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA:
+            syncs["sync calls"] += name in SYNC_CALLS
+            syncs["device reads"] += name in DEVICE_READS
+            continue
+        if name in TRAIN_RANGES:   # a range's span on the device
+            continue
+        t = e.duration_ns() / 1e3
+        busy += t
+        gemm += t * any(k in name for k in GEMM_NAMES)
+        syncs["DtoH copies"] += "DtoH" in name
+        lab = by_corr.get(e.linked_correlation_id())
+        ranges[lab] = ranges.get(lab, 0.0) + t
+        kernels[lab, name] = kernels.get((lab, name), 0.0) + t
+    top = {lab: sorted(((t, k) for (l_, k), t in kernels.items()
+                        if l_ == lab), reverse=True)[:3] for lab in ranges}
+    return dict(wall_us=wall_us, busy_us=busy, gemm_us=gemm, ranges=ranges,
+                top=top, syncs=syncs)
+
+
+def train_work(cfg, n_tokens, seq_len):
+    """Matrix-product flops of one train step under ``nothing_saveable``
+    (forward, its recompute and a backward of twice the forward), the
+    chunked attention's full square of scores and values included (its
+    masked chunks are computed), and the bytes the optimizer must move
+    (each parameter read and written, its float32 gradient read, m and v
+    read and written)."""
+    d, f = cfg.d_model, cfg.d_ff
+    dh = cfg.d_head
+    per_tok = cfg.n_layers * (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * dh
+                              + cfg.n_heads * dh * d + 3 * d * f) \
+        + cfg.vocab * d
+    attn = cfg.n_layers * 4 * seq_len * cfg.n_heads * dh * n_tokens
+    fwd = 2 * n_tokens * per_tok + attn
+    n_params = cfg.n_params()
+    return 4 * fwd, n_params * (2 * 2 + 4 + 4 * 4)
+
+
+def run_train_full_width(args, dev, smi):
+    """Phase 15 (a). Returns the record printed."""
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    m = api.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = m.init(torch.Generator(device=dev).manual_seed(args.seed + 15),
+                    device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    dcfg = train_data.DataConfig(vocab=cfg.vocab, seed=args.seed + 15,
+                                 **TRAIN_DATA)
+    ocfg = train_opt.AdamWConfig(**TRAIN_OPT)
+    perf_policy.set_policy("baseline")
+    step = trainstep.make_train_step(m, ocfg, TRAIN_MICRO)
+    ostate = train_opt.init(params)
+    torch.cuda.synchronize()
+    print(f"train {TRAIN_ARCH}: {TRAIN_LAYERS} of "
+          f"{get_arch(TRAIN_ARCH).n_layers} layers (depth only), "
+          f"{n_params / 1e9:.4f} B parameters (bf16, random from the "
+          f"seed), AdamW moments {2 * 4 * n_params / 1e9:.3f} GB; set-up "
+          f"{time.perf_counter() - t0:.2f} s | {smi}", flush=True)
+    reset_launch_counts()
+    losses, gnorms, ms = [], [], []
+    state = [params, ostate]
+
+    def run(i):
+        batch = train_data.make_batch(dcfg, i, arch=cfg, device=dev)
+        state[0], state[1], met = step(*state, batch)
+        return met
+    # the last TRAIN_PROFILE_STEPS of the steps run under the profiler
+    n_timed = TRAIN_STEPS - TRAIN_PROFILE_STEPS
+    for i in range(n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = run(i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    profiled_mets = []
+    t0 = time.perf_counter()
+    prof = train_profile(lambda: profiled_mets.extend(
+        run(i) for i in range(n_timed, TRAIN_STEPS)))
+    prof_s = time.perf_counter() - t0
+    losses += [float(m_["loss"]) for m_ in profiled_mets]
+    gnorms += [float(m_["grad_norm"]) for m_ in profiled_mets]
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == TRAIN_STEPS, f"train: {len(losses)} steps ran")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: a loss or gradient norm is not finite: {losses} "
+          f"{gnorms}")
+    check(np.mean(losses[-4:]) < losses[0],
+          f"train: the mean of the last 4 losses "
+          f"{np.mean(losses[-4:]):.4f} is not below the first "
+          f"{losses[0]:.4f}")
+    lm = {n: launches[n] for n in LM_PLAIN}
+    check(not any(lm.values()), f"train: an LM kernel launched on the "
+                                f"train path: {lm}")
+    tokens = TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
+    med = float(np.median(ms[1:]))
+    flops, opt_bytes = train_work(cfg, tokens, TRAIN_DATA["seq_len"])
+    print(f"train {TRAIN_ARCH}: {TRAIN_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in gnorms]}; LM kernel launches {lm}",
+          flush=True)
+    print(f"train {TRAIN_ARCH}: step median {med:.3f} ms over steps 2-"
+          f"{n_timed} (first {ms[0]:.3f}, min {min(ms[1:]):.3f}, max "
+          f"{max(ms[1:]):.3f}; host clock, synchronised), "
+          f"{tokens / med * 1e3:.1f} tokens/s; matrix products "
+          f"{flops / 1e12:.2f} TFLOP a step (bound "
+          f"{flops / BF16_FLOPS * 1e3:.3f} ms at the bf16 peak, "
+          f"{flops / med / 1e9:.1f} TFLOP/s achieved); optimizer bytes "
+          f"{opt_bytes / 1e9:.2f} GB (bound "
+          f"{opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+          f"max_memory_allocated {peak / 1e9:.3f} GB | {smi}", flush=True)
+    n = TRAIN_PROFILE_STEPS
+    ranges = {k if k else "the rest": round(v / 1e3 / n, 3)
+              for k, v in prof["ranges"].items()}
+    idle = 1 - prof["busy_us"] / prof["wall_us"]
+    syncs = {k: v / n for k, v in prof["syncs"].items()}
+    print(f"train {TRAIN_ARCH}, profile of the last {n} steps: wall "
+          f"{prof['wall_us'] / 1e3 / n:.3f} ms a step, device busy "
+          f"{prof['busy_us'] / 1e3 / n:.3f} ms (idle share {idle:.4f}); "
+          f"matrix-product kernels {prof['gemm_us'] / 1e3 / n:.3f} ms a "
+          f"step; device ms a step by range (forward, recompute and "
+          f"backward; its matrix products included) {ranges}; host syncs "
+          f"a step {syncs} (make_batch's copies to the card); profiling "
+          f"{prof_s:.2f} s | {smi}", flush=True)
+    for lab, rows in prof["top"].items():
+        print(f"  {lab or 'the rest'}: " + "; ".join(
+            f"{t / 1e3 / n:.3f} ms a step {k[:60]}" for t, k in rows))
+    del params, ostate, step, state, profiled_mets
+    torch.cuda.empty_cache()
+    return dict(step_ms=med, tokens_per_s=tokens / med * 1e3,
+                peak_gb=peak / 1e9, idle_share=idle, losses=losses,
+                launches=lm)
+
+
+def train_rrms(a, b):
+    """The relative RMS difference of ``a`` from ``b``, on their device."""
+    a, b = a.double(), b.double()
+    return (a - b).square().mean().sqrt() / b.square().mean().sqrt() \
+        .clamp(min=1e-30)
+
+
+def unit_grads(m, model, batch, n_micro, remat=None):
+    """``trainstep.grads_and_loss`` of ``m.train_loss`` (under the remat
+    policy ``remat``, none by default) on the model's device."""
+    fn = m.train_loss if remat is None else trainstep.remat(m.train_loss,
+                                                            remat)
+    return trainstep.grads_and_loss(fn, model, batch, n_micro,
+                                    model.embed.device)
+
+
+def run_train_unit(args, dev, smi, limit=TRAIN_UNIT_RRMS, hold=None,
+                   during=None):
+    """Phase 15 (b): one float32 layer at full width on the card and the
+    host CPU. Returns the largest relative RMS difference of the loss
+    and the gradients (card against CPU, and microbatches against one
+    batch on the card), and what ``during`` returned: a function run on
+    this thread while the CPU's pass runs on another, with two of the
+    host's threads left to it (phase 15 runs (c) there, whose launches
+    keep one core busy). ``hold(name, value)`` takes each reading instead
+    of the gate (``scripts/lockstep_seeds.py``)."""
+    import threading
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "train unit: TF32 is on")
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=1,
+                              dtype="float32")
+    m = api.build(cfg)
+    card = m.init(torch.Generator(device=dev).manual_seed(args.seed + 151),
+                  device=dev)
+    cpu = transformer.Transformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = train_data.make_batch(train_data.DataConfig(
+        vocab=cfg.vocab, seed=args.seed + 151, **TRAIN_UNIT), 0,
+        device="cpu")
+    box = {}
+
+    def cpu_pass():
+        try:
+            t0 = time.perf_counter()
+            box["cpu"] = unit_grads(m, cpu, batch, 1)
+            box["secs"] = time.perf_counter() - t0
+        except BaseException as exc:      # re-raised on the main thread
+            box["error"] = exc
+    threads = torch.get_num_threads()
+    if during is not None:
+        torch.set_num_threads(max(1, threads - 2))
+    worker = threading.Thread(target=cpu_pass)
+    worker.start()
+    worst = {}
+
+    def gate(what, ref, other):
+        rr = max(float(train_rrms(a, b)) for a, b in [(other[0], ref[0])]
+                 + [(other[1][n], ref[1][n]) for n in ref[1]])
+        worst[what] = rr
+        if hold is not None:
+            hold(what, rr)
+        else:
+            check(rr <= limit, f"train unit, float32: {what}: relative "
+                               f"RMS difference {rr:.3g} > {limit}")
+    try:
+        on_card = unit_grads(m, card, batch, 1)
+        gate("2 microbatches against 1, card", on_card,
+             unit_grads(m, card, batch, 2))
+        for pol in trainstep.REMAT_POLICIES:
+            loss, grads = unit_grads(m, card, batch, 1, pol)
+            bad = [n for n, g in grads.items() if not torch.equal(
+                g, on_card[1][n])]
+            check(torch.equal(loss, on_card[0]) and not bad,
+                  f"train unit: remat {pol} differs from no remat on the "
+                  f"card (loss {float(loss)} against {float(on_card[0])}; "
+                  f"leaves {bad[:4]})")
+        out = during() if during is not None else None
+    finally:
+        worker.join()
+        torch.set_num_threads(threads)
+    if "error" in box:
+        raise box["error"]
+    on_cpu = (box["cpu"][0], {n: g.to(dev) for n, g in box["cpu"][1].items()})
+    gate("card against the CPU", on_cpu, on_card)
+    print(f"train unit ({TRAIN_ARCH}, 1 layer, float32, B "
+          f"{TRAIN_UNIT['global_batch']}, S {TRAIN_UNIT['seq_len']}; TF32 "
+          f"off): largest relative RMS difference of the loss and the "
+          f"{len(on_card[1])} gradient leaves: "
+          f"{ {k: float(f'{v:.4g}') for k, v in worst.items()} } (limit "
+          f"{limit}); the remat policies {list(trainstep.REMAT_POLICIES)} "
+          f"bit-identical to no remat on the card; the CPU's pass "
+          f"{box['secs']:.2f} s | {smi}", flush=True)
+    del card, cpu, on_card, on_cpu
+    torch.cuda.empty_cache()
+    return worst, out
+
+
+def train_example():
+    """``examples/train_lm_torch.py`` as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_train_recovery(dev, smi):
+    """Phase 15 (c): the example's failure and recovery, exact."""
+    ex = train_example()
+    lines = []
+    t0 = time.perf_counter()
+    diff, l_fail, l_ref = ex.run(RECOVERY["steps"], RECOVERY["fail_at"],
+                                 RECOVERY["preset"], RECOVERY["ckpt_every"],
+                                 dev, lines.append)
+    secs = time.perf_counter() - t0
+    check(diff == 0.0 and l_fail == l_ref,
+          f"train recovery: the recovered run differs from the "
+          f"uninterrupted one (max |param diff| {diff}, final losses "
+          f"{l_fail[-1]} and {l_ref[-1]})")
+    recovered = [s for s in lines if "recovered at step" in s]
+    check(bool(recovered), "train recovery: no recovery ran")
+    rates = [s.strip() for s in lines if "ms/step" in s]
+    print(f"train recovery (examples/train_lm_torch.py, preset "
+          f"{RECOVERY['preset']}, {RECOVERY['steps']} steps, failure at "
+          f"{RECOVERY['fail_at']}, a checkpoint every "
+          f"{RECOVERY['ckpt_every']}): {recovered[0].strip()}; max |param "
+          f"diff| {diff} (bit-identical), final loss {l_ref[-1]:.4f} "
+          f"(first {l_ref[0]:.4f}); both runs {secs:.2f} s; the last "
+          f"step counts of A and B: {rates[len(rates) // 2 - 1]}; "
+          f"{rates[-1]} | {smi}", flush=True)
+    return diff
+
+
+def run_train_phase(args, dev, smi):
+    """Phase 15: training on the card, deterministic algorithms on (and
+    no filling of uninitialised memory: the path reads none, and a read
+    would show as a difference in (c))."""
+    import torch.utils.deterministic as det
+    torch.use_deterministic_algorithms(True)
+    fill, det.fill_uninitialized_memory = det.fill_uninitialized_memory, \
+        False
+    prev = perf_policy.current()
+    secs = {}
+    try:
+        t0 = time.perf_counter()
+        full = run_train_full_width(args, dev, smi)
+        secs["(a)"] = time.perf_counter() - t0
+        # (c) on this thread while (b)'s CPU pass runs on another
+        t0 = time.perf_counter()
+        unit, diff = run_train_unit(args, dev, smi, during=lambda: (
+            run_train_recovery(dev, smi)))
+        secs["(b) with (c)"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+        perf_policy.set_policy(prev)
+    print("training phase by part: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()) + f" | {smi}")
+    return dict(full, unit_rrms=unit, recovery_diff=diff)
+
+
 # -------------------------------------------------------------- main ----
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4523,6 +4986,13 @@ def main(argv=None):
             k["launches_by_path"]["serve"] += rec["launches"]
             k["serve"][arch] = rec
     print(f"encoder-decoder phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 15. training ----------------------------------------------------
+    t0 = time.perf_counter()
+    del encdec
+    torch.cuda.empty_cache()
+    run_train_phase(args, dev, smi)
+    print(f"training phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB; {time.perf_counter() - t_start:.2f} s in all")

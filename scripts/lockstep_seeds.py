@@ -4,6 +4,7 @@ each seed given, on one H100: the readings its limits are set from.
     python3 scripts/lockstep_seeds.py --phase 12 0 1
     python3 scripts/lockstep_seeds.py --phase 13 0 1
     python3 scripts/lockstep_seeds.py --phase 14 0 1
+    python3 scripts/lockstep_seeds.py --phase 15 0 1
 
 Phase 12 (``SERVE_RRMS``, ``SERVE_ROUTER_TIE``, ``SERVE_EDGE_RANKS``,
 ``SERVE_DIVERTED_*``): for each seed, mixtral-8x22b and gemma2-27b at
@@ -12,7 +13,12 @@ plain engine on the kernel engine's expert choices. Phase 13
 (``JAMBA_RRMS``, ``JAMBA_ROUTER_TIE``): jamba-v0.1-52b at full width, one
 unit (8 of 32 layers) deep, through ``chip_smoke.recurrent_lockstep``.
 Phase 14 (``ENCDEC_RRMS``): whisper-medium and paligemma-3b at full width
-and depth through ``chip_smoke.encdec_lockstep``. Each draws the weights
+and depth through ``chip_smoke.encdec_lockstep``. Phase 15
+(``TRAIN_UNIT_RRMS``): one float32 granite-3-8b layer at full width on
+the card and the host CPU through ``chip_smoke.run_train_unit``, under
+deterministic algorithms and with the CPU's pass on the phase's threads,
+whose readings it prints in place of the gate.
+Each draws the weights
 and traffic that ``chip_smoke.py --seed`` draws. It prints every gate
 that fails and goes on, then each model's largest relative RMS
 differences, the kernel calls against their plain versions and (phases
@@ -79,15 +85,27 @@ def models(phase, seed, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", type=int, choices=sorted(KEEP), default=13)
+    ap.add_argument("--phase", type=int, choices=sorted(KEEP) + [15],
+                    default=13)
     ap.add_argument("seeds", type=int, nargs="*", default=[0])
     args = ap.parse_args(argv)
     cs.check = check
-    cs._build.build_all(KERNELS[args.phase])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     dev = torch.device("cuda")
+    if args.phase == 15:        # no kernel runs on the train path
+        torch.use_deterministic_algorithms(True)
+        for seed in args.seeds:
+            # during: the CPU's pass on the phase's threads (all but two)
+            cs.run_train_unit(argparse.Namespace(seed=seed), dev, smi,
+                              hold=lambda what, rr, s=seed: print(
+                                  f"phase 15, seed {s}: {what}: relative "
+                                  f"RMS difference {rr!r} | {smi}",
+                                  flush=True), during=lambda: None)
+        print(f"gates failed: {len(FAILED)}")
+        return 1 if FAILED else 0
+    cs._build.build_all(KERNELS[args.phase])
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
         for seed in args.seeds:

@@ -25,39 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch._tree import items as _items, rebuild as _rebuild
 from repro_torch._u32 import np_to_i32
-
-
-def _items(tree, path=""):
-    """``(key string, leaf)`` of every leaf, in the reference's order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree) for kv in _items(tree[k],
-                                                          f"{path}[{k!r}]")]
-    if hasattr(tree, "_fields"):
-        return [kv for f in tree._fields for kv in _items(getattr(tree, f),
-                                                          f"{path}.{f}")]
-    if isinstance(tree, (list, tuple)):
-        return [kv for i, x in enumerate(tree) for kv in _items(x,
-                                                                f"{path}[{i}]")]
-    return [(path, tree)]
-
-
-def _rebuild(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        out = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(_rebuild(getattr(tree, f), leaves)
-                            for f in tree._fields))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(x, leaves) for x in tree)
-    return next(leaves)
 
 
 def _host(leaf) -> torch.Tensor:

@@ -33,8 +33,14 @@ become ``encoder.layers.{j}``, and ``cross/attn/wq[i]``, stacked over
 every layer, ``cross.{i}.attn.wq``), and ``lm_params_to_numpy`` gives
 the tree back (bfloat16 leaves as float32, exactly); leaves the reference
 keeps in float32 (norm scales, the router, the recurrent layers' gates
-and SSM constants) stay float32. ``decode_cache_from_numpy`` and
-``decode_cache_to_numpy`` carry a ``DecodeCache`` across the same way:
+and SSM constants) stay float32. Training crosses in the same layout:
+``grads_to_numpy`` (a train step's gradient sums, or each parameter's
+``.grad``), ``adamw_state_to_numpy`` and ``adamw_state_from_numpy`` (the
+optimizer's ``m`` and ``v``), and, for checkpoints, ``lm_params_to_tree``
+and ``adamw_state_to_tree`` (host tensors in their own dtype, whose leaf
+paths are the reference's) with ``lm_params_load_tree`` back.
+``decode_cache_from_numpy`` and ``decode_cache_to_numpy`` carry a
+``DecodeCache`` across the same way:
 the reference's slot of each pattern-unit position, its K/V or recurrent
 state stacked over units, ↔ the port's one slot a layer; ``enc_kv`` as
 it is.
@@ -53,6 +59,7 @@ from repro_torch.db.tpcc import TPCCState
 from repro_torch.models.blocks import LayerCacheSlot
 from repro_torch.models.recurrent import MambaCache, MLSTMCache, SLSTMCache
 from repro_torch.models.transformer import DecodeCache, Transformer
+from repro_torch.train.optimizer import AdamWState
 
 # fields that hold uint32 words in the reference
 U32_FIELDS = frozenset({"cur_hdr", "old_hdr", "ovf_hdr", "vec", "keys",
@@ -204,26 +211,108 @@ def lm_params_from_numpy(cfg, tree, device="cpu", *,
 def lm_params_to_numpy(model: Transformer) -> dict:
     """The reference's tree of the port's ``Transformer``: numpy leaves
     stacked as the reference stacks them, bfloat16 as float32."""
-    ul = model.cfg.unit_len
+    return lm_tree(model.state_dict(), model.cfg.unit_len)
+
+
+def lm_tree(named: dict, unit_len: int, leaf=tensor_to_numpy,
+            stack=np.stack) -> dict:
+    """The reference's tree of ``named`` (state-dict name → tensor, in
+    the layout of a ``Transformer``'s parameters): ``leaf`` of each
+    tensor, stacked over units by ``stack``."""
     tree = {}
-    for name, t in model.state_dict().items():
-        path, i = _lm_place(name, ul)
+    for name, t in named.items():
+        path, i = _lm_place(name, unit_len)
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})
         if i is None:
-            node[path[-1]] = tensor_to_numpy(t)
+            node[path[-1]] = leaf(t)
         else:
-            node.setdefault(path[-1], {})[i] = tensor_to_numpy(t)
-    return _stack_units(tree)
+            node.setdefault(path[-1], {})[i] = leaf(t)
+    return _stack_units(tree, stack)
 
 
-def _stack_units(node):
+def _stack_units(node, stack=np.stack):
     if not isinstance(node, dict):
         return node
     if all(isinstance(k, int) for k in node):
-        return np.stack([node[u] for u in sorted(node)])
-    return {k: _stack_units(v) for k, v in node.items()}
+        return stack([node[u] for u in sorted(node)])
+    return {k: _stack_units(v, stack) for k, v in node.items()}
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def lm_params_to_tree(model: Transformer) -> dict:
+    """The reference's tree of the model's parameters as host tensors in
+    their own dtype (bfloat16 kept): what a training checkpoint saves,
+    so that its leaf paths are the reference's."""
+    return lm_tree(model.state_dict(), model.cfg.unit_len, _host,
+                   torch.stack)
+
+
+def lm_params_load_tree(model: Transformer, tree) -> Transformer:
+    """Copy the reference-layout ``tree`` (numpy or tensor leaves) into
+    the model's parameters in place; returns the model."""
+    ul = model.cfg.unit_len
+    with torch.no_grad():
+        for name, p in model.state_dict().items():
+            p.copy_(_leaf_tensor(tree, name, ul))
+    return model
+
+
+def _leaf_tensor(tree, name: str, unit_len: int) -> torch.Tensor:
+    path, i = _lm_place(name, unit_len)
+    for part in path:
+        tree = tree[part]
+    t = tree if isinstance(tree, torch.Tensor) else tensor_from_numpy(tree)
+    return t if i is None else t[i]
+
+
+def grads_to_numpy(model: Transformer, grads=None) -> dict:
+    """Gradients in the reference's stacked tree as float32 numpy leaves:
+    ``grads`` (name → tensor, e.g. a train step's float32 sums), or each
+    parameter's ``.grad`` (zeros where it has none)."""
+    if grads is None:
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in model.named_parameters()}
+    return lm_tree({n: g.float() for n, g in grads.items()},
+                   model.cfg.unit_len)
+
+
+def adamw_state_to_numpy(model: Transformer, state: AdamWState
+                         ) -> AdamWState:
+    """An ``AdamWState`` as the reference's: ``step`` a 0-d int32 array,
+    ``m`` and ``v`` float32 trees in ``lm_params_to_numpy``'s layout."""
+    ul = model.cfg.unit_len
+    return AdamWState(step=state.step.cpu().numpy(),
+                      m=lm_tree(state.m, ul), v=lm_tree(state.v, ul))
+
+
+def adamw_state_from_numpy(model: Transformer, state, device="cpu"
+                           ) -> AdamWState:
+    """The reference's ``AdamWState`` (numpy or JAX leaves, stacked) as
+    the port's for ``model``'s parameters, on ``device``."""
+    ul = model.cfg.unit_len
+    names = [n for n, _ in model.named_parameters()]
+
+    def moments(tree):
+        return {n: _leaf_tensor(tree, n, ul).float().to(device)
+                .contiguous() for n in names}
+    return AdamWState(
+        step=torch.as_tensor(np.asarray(state.step), dtype=torch.int32)
+        .to(device), m=moments(state.m), v=moments(state.v))
+
+
+def adamw_state_to_tree(model: Transformer, state: AdamWState
+                        ) -> AdamWState:
+    """``adamw_state_to_numpy``'s tree of host tensors: what a training
+    checkpoint saves."""
+    ul = model.cfg.unit_len
+    return AdamWState(step=_host(state.step),
+                      m=lm_tree(state.m, ul, _host, torch.stack),
+                      v=lm_tree(state.v, ul, _host, torch.stack))
 
 
 # the recurrent state of each LayerCacheSlot field that holds one

@@ -1,5 +1,6 @@
 """What the kernels' wrappers share: binding a kernel's C entry with
-``ctypes``, checking their CUDA inputs, and launching with a count.
+``ctypes``, checking their CUDA inputs, refusing a call that needs a
+gradient, and launching with a count.
 
 Every C entry takes the CUDA stream as its last argument and returns the
 CUDA error of its launch (0 when it launched, or had nothing to launch).
@@ -44,6 +45,20 @@ def check(kernel: str, dev, dtype, **tensors) -> None:
                 f"{kernel}: {name} must be a contiguous {want} tensor on "
                 f"{dev}, got {t.dtype} on {t.device}"
                 + ("" if t.is_contiguous() else ", not contiguous"))
+
+
+def refuse_grad(kernel: str, plain: str, *tensors) -> None:
+    """Raise, before anything launches, when autograd is on and an input
+    requires a gradient: no kernel has a backward pass, and the output it
+    writes carries no ``grad_fn``, so the graph would be cut silently.
+    ``plain`` names the plain path that differentiates."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no gradient, and an input "
+            f"requires one (its output would cut the autograd graph); "
+            f"differentiate the plain path, {plain}, as "
+            f"transformer.train_loss does (kernels=False), or call the "
+            f"kernel under torch.no_grad()")
 
 
 def float_device(kernel: str, t: torch.Tensor):

@@ -7,6 +7,9 @@ with no query row launches nothing and counts nothing. :func:`prepare`
 validates and folds the inputs once and returns the launch, so a caller
 can repeat it on the same buffers.
 
+The kernel has no gradient: a CUDA call under autograd with an input
+that requires one raises before it launches (``_cuda.refuse_grad``).
+
 The kernel has two routes, chosen by dtype: bfloat16 runs on the tensor
 cores with its own tiles (:func:`tc_tiles`, :func:`tc_smem_bytes`), and
 float32 on the FMA units with the tiles :func:`tile_sizes` picks from
@@ -77,6 +80,8 @@ def prepare(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
     """Validate CUDA inputs of :func:`flash_attention`, fold them to
     ``[B·H, S, D]`` and allocate the output; returns a function that
     launches the kernel and returns the folded output ``[B·Hq, Sq, D]``."""
+    _cuda.refuse_grad("flash_attention", "common.chunked_attention", q, k,
+                      v)
     dev, code = _cuda.float_device("flash_attention", q)
     _cuda.check("flash_attention", dev, q.dtype, q=q, k=k, v=v)
     B, Sq, Hq, D = q.shape

@@ -5,6 +5,9 @@ For tensors on the CPU :func:`mamba_scan` runs its plain version
 falls back. Each launch adds one to ``mamba_scan.launches``; a call with
 no step or no channel launches nothing and counts nothing.
 
+The kernel has no gradient: a CUDA call under autograd with an input
+that requires one raises before it launches (``_cuda.refuse_grad``).
+
 The kernel copies 16 bytes at a time and its state count is a template
 constant (8, 16, 32 or 64), so the wrapper pads what does not fit: B, C
 and A_log with zero states up to that count (a zero B and C keep such a
@@ -88,6 +91,8 @@ def prepare(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64,
     channels as the module says and allocate the outputs; returns a
     function that launches the kernel and returns ``y [B, S, Di]`` (with
     ``return_state``, ``(y, h_last [B, Di, N])``)."""
+    _cuda.refuse_grad("mamba_scan", "mamba_scan_ref", dt, x, Bm, Cm, A_log,
+                      D_skip)
     dev, code = _cuda.float_device("mamba_scan", x)
     _cuda.check("mamba_scan", dev, x.dtype, dt=dt, x=x, Bm=Bm, Cm=Cm)
     _cuda.check("mamba_scan", dev, torch.float32, A_log=A_log, D_skip=D_skip)

@@ -6,6 +6,9 @@ Each call that launches adds one to ``moe_gmm.launches`` (the kernel is two
 CUDA launches on one stream: gate/up, then down); a call with no expert,
 row or model dimension launches nothing and counts nothing.
 
+The kernel has no gradient: a CUDA call under autograd with an input
+that requires one raises before it launches (``_cuda.refuse_grad``).
+
 The kernel has two routes, chosen by dtype. bfloat16 runs on the tensor
 cores (128 × 128 tiles, K staged 64 at a time by TMA through a four-stage
 ring: :func:`tc_smem_bytes`) and carries ``a·h`` between its launches as two
@@ -58,6 +61,8 @@ def prepare(x, w_gate, w_in, w_out, *, activation: str = "silu"):
     the ``a·h`` scratch (bf16: the hi and lo planes ``[2, E, C, F]``;
     float32: ``[E, C, F]``); returns a function that launches the kernel
     and returns the output."""
+    _cuda.refuse_grad("moe_gmm", "moe.apply_moe's einsums", x, w_gate, w_in,
+                      w_out)
     dev, code = _cuda.float_device("moe_gmm", x)
     _cuda.check("moe_gmm", dev, x.dtype, x=x, w_gate=w_gate, w_in=w_in,
                 w_out=w_out)

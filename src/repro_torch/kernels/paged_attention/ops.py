@@ -8,6 +8,9 @@ one CUDA launch, or two when a sequence spans several partitions: the
 partitions, then their merge); a call with no sequence or no head launches
 nothing and counts nothing.
 
+The kernel has no gradient: a CUDA call under autograd with an input
+that requires one raises before it launches (``_cuda.refuse_grad``).
+
 The kernel cuts each sequence into partitions of :func:`default_part`
 pages (512 tokens' worth), one block
 per (sequence, partition, K/V head, group of query heads), and merges the
@@ -110,6 +113,8 @@ def prepare(q, k_pool, v_pool, page_table, kv_len, *, window=None,
     """Validate CUDA inputs of :func:`paged_attention` and allocate the
     output and the partitions' scratch; returns a function that launches
     the kernel and returns the output."""
+    _cuda.refuse_grad("paged_attention", "common.decode_attention", q,
+                      k_pool, v_pool)
     dev, code = _cuda.float_device("paged_attention", q)
     _cuda.check("paged_attention", dev, q.dtype, q=q, k_pool=k_pool,
                 v_pool=v_pool)

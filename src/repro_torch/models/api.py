@@ -1,9 +1,9 @@
 """Public model API (``repro/models/api.py``): ``build(arch)`` → Model with
-its init and serve entry points.
+its init, train and serve entry points.
 
 The reference's ``param_shapes``, ``input_specs`` and ``cache_specs`` are
 ``jax.eval_shape`` dry runs for its ``launch/`` tools; they wait for the
-port's analogues of those tools. ``train_loss`` waits for slice F3.
+port's analogues of those tools.
 """
 from __future__ import annotations
 
@@ -24,6 +24,11 @@ class Model:
         """Random weights from ``generator`` on ``device`` (the card unless
         the CPU is asked for)."""
         return transformer.init_params(self.cfg, generator, device, dtype)
+
+    def train_loss(self, params, batch):
+        """The scalar loss of ``batch`` (``transformer.train_loss``), on
+        the plain path."""
+        return transformer.train_loss(self.cfg, params, batch)
 
     def prefill(self, params, batch, max_len: int, kernels=True):
         """``batch``: ``tokens`` [B, S], and ``frames`` [B, encoder_seq,

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
@@ -255,9 +256,9 @@ def moe_block(p, x, cfg: ArchConfig, capacity_factor, kernels=True):
     return y2.reshape(B, S, D)
 
 
-def layer_forward(p, x, positions, cfg: ArchConfig, spec: LayerSpec, *,
-                  prefix_len=None, causal=True, kernels=True):
-    """Train/prefill forward of one layer. Returns (x, cache_slot)."""
+def _mixer(p, x, positions, cfg: ArchConfig, spec: LayerSpec, prefix_len,
+           causal, kernels):
+    """The sequence mixer of layer ``p`` on x: ``(y, cache slot)``."""
     h = common.rms_norm(x, p.ln1, cfg.norm_eps)
     slot = LayerCacheSlot()
     if spec.kind == "attn":
@@ -274,12 +275,37 @@ def layer_forward(p, x, positions, cfg: ArchConfig, spec: LayerSpec, *,
     else:
         y, sc = recurrent.apply_slstm(p.slstm, h, n_heads=cfg.n_heads)
         slot = slot._replace(slstm=sc)
-    x = x + y
+    return y, slot
+
+
+def _ffn(p, x, cfg: ArchConfig, spec: LayerSpec, kernels):
+    """The MLP or MoE half of layer ``p`` on x (its output)."""
     if spec.mlp == "dense":
-        x = x + mlp_forward(p.mlp, common.rms_norm(x, p.ln2, cfg.norm_eps),
-                            cfg)
-    elif spec.mlp == "moe":
-        x = x + moe_block(p, x, cfg, cfg.capacity_factor, kernels)
+        return mlp_forward(p.mlp, common.rms_norm(x, p.ln2, cfg.norm_eps),
+                           cfg)
+    return moe_block(p, x, cfg, cfg.capacity_factor, kernels)
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in the backward pass
+    and its output kept."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def layer_forward(p, x, positions, cfg: ArchConfig, spec: LayerSpec, *,
+                  prefix_len=None, causal=True, kernels=True,
+                  remat_blocks=False):
+    """Train/prefill forward of one layer. Returns (x, cache_slot).
+
+    ``remat_blocks`` checkpoints the mixer and the MLP/MoE bodies one by
+    one, so that the backward pass keeps their outputs (the reference's
+    ``"block_out"``) and recomputes each body alone."""
+    run = checkpointed if remat_blocks else (lambda fn, *a: fn(*a))
+    y, slot = run(_mixer, p, x, positions, cfg, spec, prefix_len, causal,
+                  kernels)
+    x = x + y
+    if spec.mlp != "none":
+        x = x + run(_ffn, p, x, cfg, spec, kernels)
     return x, slot
 
 

@@ -1,6 +1,7 @@
 """Shared model primitives (``repro/models/common.py``): norms, RoPE,
 activations, the embedding lookup, the one-card KV cache write, logit
-softcap, the online-softmax step, chunked attention and decode attention.
+softcap, the online-softmax step, chunked attention, decode attention and
+the chunked cross-entropy of the train loss.
 
 The attention functions are also the plain versions the attention kernels
 are held against, so they keep the reference's numerics: the query is
@@ -8,11 +9,14 @@ scaled in its own dtype, the scores of a bfloat16 product are rounded to
 bfloat16 before they are widened, and the softmax and the value sum run in
 float32.
 
-The reference's ``pin``, ``pin_batch`` and ``name_for_remat`` constrain
-shardings over a device mesh and tag tensors for rematerialisation; on one
-card there is nothing to pin or tag, so they have no counterpart here, and
-``embed_lookup`` and ``kv_cache_update`` keep only the reference's
-branch without a mesh.
+The reference's ``pin`` and ``pin_batch`` constrain shardings over a
+device mesh, and ``name_for_remat`` tags a tensor for a
+``save_only_these_names`` remat policy; on one card there is nothing to
+pin, and the port keeps the tagged block outputs by checkpointing each
+block's body on its own (``blocks.layer_forward(remat_blocks=True)``), so
+all three are the identity here. ``embed_lookup`` and
+``kv_cache_update`` keep only the reference's branch without a mesh, and
+``chunked_cross_entropy`` its branch without ``ce_vocab_sharded``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,22 @@ def normal_(w, std: float, generator):
     with torch.no_grad():
         w.normal_(0.0, std, generator=generator)
     return w
+
+
+def pin(x, spec_fn):
+    """The identity: one card has no mesh to constrain ``x`` over."""
+    return x
+
+
+def pin_batch(x):
+    """The identity: one card has no batch axis to pin ``x`` to."""
+    return x
+
+
+def name_for_remat(x, name: str):
+    """The identity: no remat policy of the port saves tensors by name
+    (module docstring)."""
+    return x
 
 
 def embed_lookup(embed, tokens):
@@ -190,3 +210,35 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=None,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).to(dt), v_cache.to(dt))
     return o.reshape(B, Hq, D)
+
+
+def chunked_cross_entropy(hidden, emb, targets, mask, *, chunk: int = 1024,
+                          logit_cap: Optional[float] = None):
+    """Cross-entropy without materializing [B, S, V] logits.
+
+    hidden: [B, S, D]; emb: [V, D] (the tied head); targets: [B, S]
+    int32; mask: [B, S]. The sequence is padded to whole chunks of
+    ``chunk`` (padding rows have mask 0 and add nothing); each chunk's
+    logits [B, chunk, V] are the product of ``hidden`` and ``emb`` in
+    their own dtype, widened to float32, then softcapped; the loss of a
+    position is its logsumexp less its target's logit. Returns
+    ``(loss_sum / max(w_sum, 1), w_sum)``, the mean and the total
+    weight, as the reference's scan returns them."""
+    B, S, D = hidden.shape
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    h = F.pad(hidden, (0, 0, 0, pad))
+    t = F.pad(targets, (0, pad)).long()
+    m = F.pad(mask, (0, pad))
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = torch.einsum("bsd,vd->bsv", h[:, sl], emb).float()
+        logits = softcap(logits, logit_cap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, t[:, sl, None], dim=-1)[..., 0]
+        mc = m[:, sl]
+        loss_sum = loss_sum + ((lse - gold) * mc).sum()
+        w_sum = w_sum + mc.sum()
+    return loss_sum / torch.clamp(w_sum, min=1.0), w_sum

@@ -15,13 +15,22 @@ encoder-decoder and prefix-LM):
   init_params     → a :class:`Transformer` with random weights
   encode          → the encoder's output for stub frame embeddings
   forward_hidden  → final hidden states (and each layer's cache slot)
+  train_loss      → scalar loss (chunked cross-entropy; never
+                    materializes [B, S, V])
   prefill         → (last hidden, DecodeCache), the encoder pass and the
                     prefix included
   decode_step     → one-token serve step against a DecodeCache
 
 ``kernels=False`` keeps a CUDA call of ``encode``, ``forward_hidden``,
-``prefill`` or ``decode_step`` on the plain path. ``train_loss`` and
-``chunked_cross_entropy`` wait for slice F3 (training).
+``prefill`` or ``decode_step`` on the plain path. ``train_loss`` always
+runs the plain path: no kernel has a gradient (module docstring of
+``train_loss``).
+
+Under autograd the policy's ``remat_unit`` checkpoints each unit of
+``unit_len`` layers (the reference's scanned unit body), and with
+``remat_save_block_out`` each block's body instead
+(``blocks.layer_forward(remat_blocks=True)``), which keeps the block
+outputs; neither changes a value.
 """
 from __future__ import annotations
 
@@ -29,8 +38,10 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import policy
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, common
@@ -171,18 +182,64 @@ def forward_hidden(cfg: ArchConfig, params, tokens_or_embeds, *,
         x = common.embed_lookup(params.embed, tokens_or_embeds)
     else:
         x = tokens_or_embeds
+    pol = policy.current()
+    remat = pol.remat_unit and torch.is_grad_enabled()
+    by_block = remat and pol.remat_save_block_out
+    ul = cfg.unit_len
+
+    def unit(x, u):
+        slots = []
+        for i in range(u * ul, (u + 1) * ul):
+            layer = params.layers[i]
+            # positions None: 0..S-1 in every row
+            x, slot = blocks.layer_forward(
+                layer, x, None, cfg, layer.spec, prefix_len=prefix_len,
+                causal=causal, kernels=kernels, remat_blocks=by_block)
+            if cfg.is_encdec:
+                args = (cfg, params.cross[i], x, enc_out, None, kernels)
+                x = blocks.checkpointed(cross_attend, *args) if by_block \
+                    else cross_attend(*args)
+            slots.append(slot)
+        return x, slots
+
     slots = []
-    for i, layer in enumerate(params.layers):
-        # positions None: 0..S-1 in every row
-        x, slot = blocks.layer_forward(layer, x, None, cfg, layer.spec,
-                                       prefix_len=prefix_len, causal=causal,
-                                       kernels=kernels)
-        if cfg.is_encdec:
-            x = cross_attend(cfg, params.cross[i], x, enc_out, None,
-                             kernels)
-        slots.append(slot)
+    for u in range(len(params.layers) // ul):
+        if remat and not by_block:
+            x, s = torch.utils.checkpoint.checkpoint(unit, x, u,
+                                                     use_reentrant=False)
+        else:
+            x, s = unit(x, u)
+        slots += s
     x = common.rms_norm(x, params.final_ln, cfg.norm_eps)
     return x, (tuple(slots) if collect_cache else None)
+
+
+def train_loss(cfg: ArchConfig, params, batch):
+    """The mean next-token loss of ``batch``: ``tokens``, ``targets`` and
+    ``mask`` [B, S], and ``frames`` [B, encoder_seq, D] (encoder-decoder)
+    or ``patches`` [B, prefix_len, D] (prefix-LM), the stub frontends'
+    embeddings; the loss covers the token positions only.
+
+    It runs the plain path (``kernels=False``) on every device: the
+    reference trains by autodiff of its plain functions and gives no
+    kernel a gradient, and the port's kernel wrappers write outputs that
+    autograd cannot see through, so they refuse a call that needs a
+    gradient."""
+    enc_out, prefix_len, inputs = None, None, batch["tokens"]
+    if cfg.is_encdec:
+        enc_out = encode(cfg, params, batch["frames"], kernels=False)
+    if cfg.is_prefix_lm:
+        x_tok = common.embed_lookup(params.embed, batch["tokens"])
+        inputs = torch.cat([batch["patches"].to(x_tok.dtype), x_tok], 1)
+        prefix_len = cfg.prefix_len
+    hidden, _ = forward_hidden(cfg, params, inputs, prefix_len=prefix_len,
+                               enc_out=enc_out, kernels=False)
+    if cfg.is_prefix_lm:
+        hidden = hidden[:, cfg.prefix_len:]
+    loss, _ = common.chunked_cross_entropy(
+        hidden, params.embed, batch["targets"], batch["mask"],
+        logit_cap=cfg.logit_softcap)
+    return loss
 
 
 def lm_head(h, embed, cap: Optional[float]):

@@ -1471,6 +1471,76 @@ def test_lm_wrappers_raise_on_bad_cuda_inputs():
         moe_ops.moe_gmm(x, wg.bfloat16(), wi, wo)
 
 
+@pytest.mark.gpu
+def test_lm_wrappers_refuse_a_gradient_on_card():
+    """Each LM kernel wrapper raises, naming the plain path, when
+    autograd is on and an input requires a gradient, and launches
+    nothing; under ``torch.no_grad()`` the same call launches."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev)
+               for a in flash_inputs(1, 8, 8, 2, 2, 32))
+    x, wg, wi, wo = (torch.from_numpy(a).to(dev)
+                     for a in moe_inputs(1, 8, 16, 8))
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    calls = {
+        flash_ops.flash_attention: lambda w: flash_ops.flash_attention(
+            w(q), k, v),
+        moe_ops.moe_gmm: lambda w: moe_ops.moe_gmm(x, w(wg), wi, wo),
+        mamba_ops.mamba_scan: lambda w: mamba_ops.mamba_scan(
+            torch.rand(1, 8, 16, **f32), w(torch.randn(1, 8, 16, **f32)),
+            torch.randn(1, 8, 4, **f32), torch.randn(1, 8, 4, **f32),
+            torch.zeros(16, 4, **f32), torch.ones(16, **f32)),
+        paged_ops.paged_attention: lambda w: paged_ops.paged_attention(
+            w(torch.randn(1, 4, 32, **f32)), torch.randn(2, 8, 2, 32, **f32),
+            torch.randn(2, 8, 2, 32, **f32), torch.zeros((1, 2), **i32),
+            torch.full((1,), 8, **i32)),
+    }
+    for wrapper, call in calls.items():
+        n = wrapper.launches
+        with pytest.raises(RuntimeError, match="no gradient.*plain path"):
+            call(lambda t: t.clone().requires_grad_(True))
+        assert wrapper.launches == n, wrapper.__name__
+        with torch.no_grad():
+            call(lambda t: t.clone().requires_grad_(True))
+        torch.cuda.synchronize()
+        assert wrapper.launches == n + 1, wrapper.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aid", ["mixtral-8x22b", "jamba-v0.1-52b",
+                                 "whisper-medium"])
+def test_bf16_train_step_launches_no_kernel_on_card(aid):
+    """A bf16 train step at a small width (``reduced``) on the card runs
+    the plain path: no LM kernel launches, the loss and gradient norm are
+    finite and every parameter moves; the same batch's loss equals the
+    plain ``kernels=False`` forward's under ``no_grad``."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainstep import make_train_step
+    dev = _cuda()
+    cfg = reduced(get_arch(aid))
+    m = api.build(cfg)
+    model = m.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4), 0, arch=cfg, device=dev)
+    wrappers = (flash_ops.flash_attention, paged_ops.paged_attention,
+                moe_ops.moe_gmm, mamba_ops.mamba_scan)
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        want = m.train_loss(model, batch)
+    old = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(m, opt.AdamWConfig(warmup_steps=1), 2)
+    model, state, met = step(model, opt.init(model), batch)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+    torch.testing.assert_close(met["loss"], want, rtol=2e-2, atol=0)
+    moved = [n for n, p in model.named_parameters()
+             if not torch.equal(p.detach(), old[n])]
+    assert len(moved) == len(old)
+
+
 # ------------------------------------------------- the timestamp oracles ----
 def shared_slot_commit_case(seed, near_wrap):
     """``commit_many_case`` cut to 60 transactions of 16 requests whose
@@ -1849,7 +1919,8 @@ def test_missing_kernel_library_raises_on_the_serve_path(monkeypatch):
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(_build, "build_all", no_build)
     tok = torch.randint(2, cfg.vocab, (2, 8), device=dev)
-    with pytest.raises(RuntimeError, match="no kernel library"):
+    with pytest.raises(RuntimeError, match="no kernel library"), \
+            torch.no_grad():
         transformer.forward_hidden(cfg, model, tok)
     x = torch.zeros(4, 2, 128, dtype=torch.bfloat16, device=dev)
     w = torch.zeros(4, 128, 256, dtype=torch.bfloat16, device=dev)

@@ -98,3 +98,27 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
             _build.load(name)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+def test_train_entry_points_refuse_the_cpu_silently(monkeypatch):
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainstep import make_train_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_arch("granite-3-8b"))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch(dcfg, 0)
+    batch = make_batch(dcfg, 0, device="cpu")
+    assert batch["tokens"].device.type == "cpu"
+    model = api.build(cfg).init(torch.Generator().manual_seed(0),
+                                device="cpu")
+    step = make_train_step(api.build(cfg), opt.AdamWConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        step(model, opt.init(model), batch)
+    step = make_train_step(api.build(cfg), opt.AdamWConfig(), device="cpu")
+    _, st, metrics = step(model, opt.init(model), batch)
+    assert int(st.step) == 1 and torch.isfinite(metrics["loss"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--reduced", "--steps", "1"])
