@@ -277,6 +277,33 @@ Phases, each fatal on failure:
    a checkpoint every 20, a failure at 35 recovered from the checkpoint
    and the journal): the recovered parameters equal the uninterrupted
    run's bit for bit.
+16. the ``launch/`` analogues (phase 15's model freed first). (a) The dry
+   run (``launch/dryrun.count_cell``) on this host's CPU, on meta tensors:
+   phase 15's step (granite-3-8b, 8 layers, 8 × 1,024 tokens in 2
+   microbatches, ``nothing_saveable``) and phase 12's mixtral-8x22b at its
+   8 layers (a prefill of 8 × 1,024 tokens and a decode step over a
+   1,024-position cache): counted FLOPs, model FLOPs and argument bytes;
+   phase 15's measured median step as a share of the bf16 peak from both
+   FLOP counts; ``fits_one_card`` of every architecture × shape at full
+   depth when that sweep takes at most 60 s. These are counts on the H100
+   spec constants, not card times. (b) ``moe.apply_moe_sharded`` at
+   mixtral-8x22b width (one MoE layer's weights from ``--seed``), 8,192
+   tokens, under the ``opt`` policy on a (4, 1) and a (2, 2) shape-only
+   mesh: at a dropless capacity each mesh's routing and ``load`` equal the
+   global dispatch's, and the (4, 1) mesh's y equals the global kernel
+   path's bit for bit (the (2, 2) mesh's two F-slices' bf16 partials are
+   summed, so it is held within ``tolerance``); at ``capacity_factor``
+   1.25 every mesh's kernel path equals its plain path within the
+   ``moe_gmm`` tolerance, with ``load`` and ``dropped_fraction`` equal;
+   ``moe_gmm`` launches once a model slice a call; the dispatches and the
+   (4, 1) mesh's ``moe_gmm`` launch over ``[E, |dp|·C_l, D]`` are timed
+   with CUDA events beside its bound and its plain version. (c) One
+   ``Model.prefill`` of mixtral-8x22b at full width, 2 of its 56 layers,
+   8 prompts of 1,024 tokens, under the opt policy and the (4, 1) mesh:
+   ``moe.apply_moe_sharded`` runs once a MoE layer a path,
+   ``flash_attention`` and ``moe_gmm`` launch once a layer, and the
+   kernel path is held against the plain path on its expert choices by
+   phase 12's rule.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -285,6 +312,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -340,6 +368,10 @@ from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch import policy as perf_policy  # noqa: E402
+from repro_torch.configs import SHAPES  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun as launch_dryrun  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_host_mesh  # noqa: E402
 from repro_torch.data import pipeline as train_data  # noqa: E402
 from repro_torch.train import optimizer as train_opt  # noqa: E402
 from repro_torch.train import trainstep  # noqa: E402
@@ -4575,6 +4607,301 @@ def run_train_phase(args, dev, smi):
     return dict(full, unit_rrms=unit, recovery_diff=diff)
 
 
+# --------------------------- the launch/ analogues (phase 16) ----
+LAUNCH_ARCH = "mixtral-8x22b"
+LAUNCH_T = 8192                  # (b): tokens of one sharded dispatch
+LAUNCH_MESHES = ((4, 1), (2, 2))  # ("data", "model")
+LAUNCH_CF = 1.25                 # (b): mixtral's capacity factor
+LAUNCH_CF_DROPS = 1.0            # (b): one that drops choices here
+LAUNCH_REPS = 5                  # CUDA-event calls timed a dispatch
+LAUNCH_PREFILL = dict(n_layers=2, B=8, S=1024)   # (c)
+DRYRUN_SWEEP_S = 60.0            # print the full fits table within this
+
+
+def dryrun_cells():
+    """(label, cfg, shape, microbatches) of the cells the card measures:
+    phase 15's step, and phase 12's mixtral at its depth over 8 sequences
+    of 1,024 tokens (prefill, and a decode step over a 1,024-position
+    cache)."""
+    granite = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    mixtral = dataclasses.replace(get_arch(LAUNCH_ARCH),
+                                  n_layers=dict(SERVE_CONFIGS)[LAUNCH_ARCH])
+    return (("phase 15 train step", granite,
+             ShapeConfig("phase15", TRAIN_DATA["seq_len"],
+                         TRAIN_DATA["global_batch"], "train"), TRAIN_MICRO),
+            ("phase 12 prefill", mixtral,
+             ShapeConfig("phase12_prefill", 1024, 8, "prefill"), 1),
+            ("phase 12 decode step", mixtral,
+             ShapeConfig("phase12_decode", 1024, 8, "decode"), 1))
+
+
+def run_dryrun_part(smi, train):
+    """Phase 16 (a): the dry run on this host's CPU, on meta tensors, of
+    the cells the card measures (counts on the H100 spec constants, not
+    card times), phase 15's measured step as a share of the bf16 peak,
+    and ``fits_one_card`` of every architecture × shape."""
+    prev = perf_policy.current()
+    perf_policy.set_policy("baseline")
+    try:
+        for label, cfg, shape, n_micro in dryrun_cells():
+            rec = launch_dryrun.count_cell(cfg, shape, make_host_mesh(),
+                                           n_micro)
+            mem, roof = rec["memory"], rec["roofline"]
+            parts = {k: round(v / 1e9, 3) for k, v in mem.items()
+                     if k not in ("argument_bytes", "fits_one_card")}
+            if shape.kind == "train":
+                train_rec = rec
+            print(f"dry run, {label} ({cfg.name}, {cfg.n_layers} layers, "
+                  f"{shape.global_batch} x {shape.seq_len} tokens"
+                  + (f", {n_micro} microbatches" if shape.kind == "train"
+                     else "") + f"): counted {rec['hlo_flops'] / 1e12:.4f} "
+                  f"TFLOP, model {rec['model_flops_total'] / 1e12:.4f} TFLOP "
+                  f"(useful share {rec['useful_flops_ratio']:.4f}), unfused "
+                  f"bytes {rec['hlo_bytes'] / 1e9:.3f} GB, argument bytes "
+                  f"{mem['argument_bytes'] / 1e9:.3f} GB ({parts} GB), "
+                  f"fits_one_card {mem['fits_one_card']}; on the H100 spec "
+                  f"constants compute {roof['compute_s'] * 1e3:.3f} ms, "
+                  f"memory {roof['memory_s'] * 1e3:.3f} ms "
+                  f"({roof['dominant']}); counts on meta in "
+                  f"{rec['dryrun_s']:.2f} s, not card times | {smi}",
+                  flush=True)
+    finally:
+        perf_policy.set_policy(prev)
+    rec = train_rec
+    step_s = train["step_ms"] / 1e3
+    print(f"phase 15's measured median step {train['step_ms']:.3f} ms "
+          f"(this run): counted FLOPs {rec['hlo_flops'] / step_s / 1e12:.1f} "
+          f"TFLOP/s = {100 * rec['hlo_flops'] / step_s / BF16_FLOPS:.2f} % "
+          f"of the bf16 peak; model FLOPs (6 N T) "
+          f"{rec['model_flops_total'] / step_s / 1e12:.1f} TFLOP/s = "
+          f"{100 * rec['model_flops_total'] / step_s / BF16_FLOPS:.2f} % "
+          f"(mfu) | {smi}", flush=True)
+    t0 = time.perf_counter()
+    fits = launch_dryrun.fits_table()
+    secs = time.perf_counter() - t0
+    if secs <= DRYRUN_SWEEP_S:
+        print(f"fits_one_card (argument bytes of the whole cell at full "
+              f"depth against 80 GB; {secs:.2f} s on meta):")
+        for arch in dict.fromkeys(a for a, _ in fits):
+            print(f"  {arch}: " + ", ".join(
+                f"{s} {'n/a' if fits[arch, s] is None else fits[arch, s]}"
+                for s in SHAPES))
+    else:
+        print(f"fits_one_card sweep took {secs:.2f} s > {DRYRUN_SWEEP_S} "
+              f"s: the table is in PERF.md (the CLI's)")
+
+
+def launch_moe(p, x, mesh_shape, cf, kernels=True):
+    """``moe.apply_moe`` under the opt policy (set by the caller) and the
+    shape-only mesh ``mesh_shape`` (None: no mesh, the global
+    dispatch)."""
+    ctx = Mesh(("data", "model"), mesh_shape) if mesh_shape \
+        else contextlib.nullcontext()
+    with ctx:
+        return moe_mod.apply_moe(p, x, top_k=2, capacity_factor=cf,
+                                 kernels=kernels)
+
+
+def counted(fn):
+    """``(fn(), moe_gmm launches it made)``."""
+    n = moe_ops.moe_gmm.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, moe_ops.moe_gmm.launches - n
+
+
+@torch.no_grad()
+def run_sharded_moe_part(p, x, smi, phase8):
+    """Phase 16 (b): the sharded dispatch at mixtral width, T tokens,
+    under the opt policy: dropless, bit for bit against the global kernel
+    path on a (4, 1) mesh; at ``LAUNCH_CF`` and ``LAUNCH_CF_DROPS``
+    against its plain path on every mesh; one ``moe_gmm`` launch a model
+    slice a call; the dispatches timed with CUDA events. Returns the
+    kernel record's additions."""
+    E = p.router.shape[1]
+    dropless = E / 2
+    (yg, sg), ng = counted(lambda: launch_moe(p, x, None, dropless))
+    check(ng == 1, f"global dispatch: {ng} moe_gmm launches")
+    for shape in LAUNCH_MESHES:
+        (ys, ss), ns = counted(lambda: launch_moe(p, x, shape, dropless))
+        check(ns == shape[1], f"sharded dispatch {shape}: {ns} moe_gmm "
+                              f"launches, expected {shape[1]}")
+        same(ss.load, sg.load, f"sharded dispatch {shape}: load")
+        check(float(ss.dropped_fraction) == float(sg.dropped_fraction) == 0,
+              f"sharded dispatch {shape}: drops at a dropless capacity")
+        if shape[1] == 1:
+            check(torch.equal(ys, yg), f"sharded dispatch {shape}: y is not "
+                                       f"bit-identical to the global one")
+            note = "bit-identical to the global kernel path"
+        else:
+            tol = tolerance.LM_TOL["bfloat16"]
+            err, rel, ok = held_to(ys, yg, tol, tol)
+            check(ok, f"sharded dispatch {shape}: y max abs {err} from the "
+                      f"global kernel path")
+            note = (f"max abs {err:.4g} from the global kernel path (the "
+                    f"{shape[1]} F-slices' bf16 partials are summed, as the "
+                    f"reference's psum_scatter sums them: not bit-exact)")
+        print(f"sharded moe {LAUNCH_ARCH} T={x.shape[0]}, mesh {shape}, "
+              f"dropless (cf {dropless}): {ns} moe_gmm launch(es), load "
+              f"equal, {note} | {smi}", flush=True)
+        del ys
+    del yg
+    torch.cuda.empty_cache()
+    res = {}
+    for shape in LAUNCH_MESHES:
+        for cf in (LAUNCH_CF, LAUNCH_CF_DROPS):
+            (yk, sk), nk = counted(lambda: launch_moe(p, x, shape, cf))
+            (yp, sp), npl = counted(lambda: launch_moe(p, x, shape, cf,
+                                                       kernels=False))
+            what = f"sharded dispatch {shape}, cf {cf}"
+            check((nk, npl) == (shape[1], 0), f"{what}: launches {nk}, "
+                                              f"plain {npl}")
+            same(sk.load, sp.load, f"{what}: load")
+            drop = float(sk.dropped_fraction)
+            check(drop == float(sp.dropped_fraction), f"{what}: dropped "
+                  f"{drop} against plain {float(sp.dropped_fraction)}")
+            check(drop > 0 or cf != LAUNCH_CF_DROPS, f"{what}: no choice "
+                                                     f"dropped")
+            tol = tolerance.LM_TOL["bfloat16"]
+            err, rel, ok = held_to(yk, yp, tol, tol)
+            check(ok, f"{what}: y max abs {err} from its plain path")
+            res[shape, cf] = dict(max_abs_err=err, dropped_fraction=drop)
+            print(f"sharded moe {LAUNCH_ARCH}, mesh {shape}, cf {cf}: "
+                  f"{nk} moe_gmm launch(es), dropped {drop:.6f}, load and "
+                  f"drops equal to the plain path's, y max abs {err:.4g} "
+                  f"(rel {rel:.4g}, tolerance {tol}) | {smi}", flush=True)
+            del yk, yp
+    torch.cuda.empty_cache()
+    times = {}
+    for label, shape, kern in (("global", None, True),
+                               ("sharded (4, 1)", (4, 1), True),
+                               ("sharded (2, 2)", (2, 2), True),
+                               ("sharded (4, 1) plain", (4, 1), False)):
+        times[label] = time_events(
+            lambda: launch_moe(p, x, shape, LAUNCH_CF, kern), LAUNCH_REPS)
+    # the (4, 1) mesh's grouped FFN alone: its moe_gmm launch over every
+    # shard's buckets, beside its bound, its plain version and phase 8's
+    with ModelShadow() as shadow:
+        shadow.step("k")
+        launch_moe(p, x, (4, 1), LAUNCH_CF)
+        shadow.tag = None
+    args, kw, _ = shadow.calls["moe_gmm"][0]
+    rows, (wg, wi, wo) = args[0], args[1:4]
+    Er, R, D = rows.shape
+    flops = 2.0 * Er * R * D * wi.shape[2] * 3
+    b_ms, b_by = serve_bound(2 * _nbytes(rows) + _nbytes(wg, wi, wo),
+                             flops / BF16_FLOPS)
+    k_ms = time_events(lambda: moe_ops.moe_gmm(*args, **kw), LAUNCH_REPS)
+    p_ms = time_events(lambda: moe_ref.moe_gmm_ref(*args, **kw), 2)
+    del shadow
+    print(f"sharded moe {LAUNCH_ARCH}, cf {LAUNCH_CF}: dispatch ms a call "
+          f"(CUDA events, {LAUNCH_REPS} calls) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f"; its moe_gmm launch over [E, |dp|·C_l, D] = "
+          f"{list(rows.shape)}: {k_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {100 * b_ms / k_ms:.1f} % of it, plain {p_ms:.4f} "
+          f"ms; phase 8 {phase8['case']}: {phase8['ms']:.4f} ms | {smi}",
+          flush=True)
+    return dict(ms=k_ms, bound_ms=b_ms, plain_ms=p_ms, bound_by=b_by,
+                rows=list(rows.shape), dispatch_ms=times,
+                capacity_factor=LAUNCH_CF,
+                max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                against_plain={f"mesh {m} cf {cf}": r
+                               for (m, cf), r in res.items()})
+
+
+@torch.no_grad()
+def run_sharded_prefill_part(cfg, model, smi):
+    """Phase 16 (c): ``Model.prefill`` under the opt policy and a (4, 1)
+    mesh, the kernel path against the plain path on the kernel path's
+    expert choices (phase 12's rule: K/V and the last position's logits
+    within ``SERVE_RRMS``, the first layer's K/V bit for bit, every
+    kernel call against its plain version). Returns the launches."""
+    m = api.build(cfg)
+    L = cfg.n_layers
+    gen = torch.Generator(device=model.embed.device).manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab, (LAUNCH_PREFILL["B"],
+                                          LAUNCH_PREFILL["S"]),
+                           generator=gen, device=model.embed.device,
+                           dtype=torch.int32)
+    res = dict(rrms=0.0, rrms_at="", rows=0, calls={}, states={}, held={})
+    sharded = moe_mod.apply_moe_sharded
+    routed = []
+    moe_mod.apply_moe_sharded = lambda *a, **kw: routed.append(1) \
+        or sharded(*a, **kw)
+    reset_launch_counts()
+    try:
+        with ModelShadow() as shadow, \
+                Mesh(("data", "model"), LAUNCH_MESHES[0]):
+            shadow.step("k")
+            hk, ck = m.prefill(model, {"tokens": tokens},
+                               LAUNCH_PREFILL["S"])
+            launches = lm_launches()
+            shadow.step("p")
+            hp, cp = m.prefill(model, {"tokens": tokens},
+                               LAUNCH_PREFILL["S"], kernels=False)
+            shadow.tag = None
+    finally:
+        moe_mod.apply_moe_sharded = sharded
+    what = f"{cfg.name} prefill under opt, mesh {LAUNCH_MESHES[0]}"
+    want = {"flash_attention": L, "moe_gmm": moe_layers(cfg),
+            "mamba_scan": 0}
+    check(launches == want, f"{what}: launches {launches}, expected {want}")
+    check(lm_launches() == want, f"{what}: the plain path launched")
+    check(len(routed) == 2 * moe_layers(cfg), f"{what}: the sharded "
+          f"dispatch ran {len(routed)} times, not once a MoE layer a path")
+    check_serve_calls(shadow, res, what)
+    same(ck.kv_len, cp.kv_len, f"{what}: kv_len")
+    check_model_states(cfg, ck, cp, res, what, {"attn": SERVE_RRMS["kv"]})
+    lk, lp = (transformer.lm_head(h, model.embed, cfg.logit_softcap)
+              for h in (hk, hp))
+    rrms_gate(lk, lp, list(range(lk.shape[0])), res, what,
+              SERVE_RRMS["logits"])
+    print(f"{what}: {LAUNCH_PREFILL['B']} prompts of {LAUNCH_PREFILL['S']} "
+          f"tokens, {L} of {get_arch(cfg.name).n_layers} layers; launches "
+          f"{launches}; the plain path on the kernel path's expert "
+          f"choices: K/V relative RMS {res['states']} (limit "
+          f"{SERVE_RRMS['kv']}, the first layer's bit-identical), logits "
+          f"{res['rrms']:.4g} (limit {SERVE_RRMS['logits']}); kernel calls "
+          f"against their plain versions: {res['calls']} | {smi}",
+          flush=True)
+    return launches
+
+
+def run_launch_phase(args, dev, smi, train, phase8_moe):
+    """Phase 16: the dry run (a), the sharded MoE dispatch at mixtral
+    width (b) and a mixtral prefill that reaches it (c). Returns the
+    ``moe_gmm`` record's additions."""
+    t0 = time.perf_counter()
+    run_dryrun_part(smi, train)
+    secs = {"(a)": time.perf_counter() - t0}
+    prev = perf_policy.current()
+    perf_policy.set_policy("opt")
+    try:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(LAUNCH_ARCH),
+                                  n_layers=LAUNCH_PREFILL["n_layers"])
+        model = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(args.seed + 16), dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 160)
+        x = torch.randn(LAUNCH_T, cfg.d_model, generator=gen, device=dev) \
+            .bfloat16()
+        sharded = run_sharded_moe_part(model.layers[0].moe, x, smi,
+                                       phase8_moe)
+        del x
+        secs["(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches = run_sharded_prefill_part(cfg, model, smi)
+        secs["(c)"] = time.perf_counter() - t0
+    finally:
+        perf_policy.set_policy(prev)
+    del model
+    torch.cuda.empty_cache()
+    print("launch phase by part: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in secs.items()) + f" | {smi}")
+    return dict(sharded, sharded_prefill_launches=launches["moe_gmm"])
+
+
 # -------------------------------------------------------------- main ----
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4991,8 +5318,18 @@ def main(argv=None):
     t0 = time.perf_counter()
     del encdec
     torch.cuda.empty_cache()
-    run_train_phase(args, dev, smi)
+    train = run_train_phase(args, dev, smi)
     print(f"training phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 16. the launch/ analogues: the dry run, the sharded dispatch ----
+    t0 = time.perf_counter()
+    moe_rec = next(k for k in kernels if k["name"] == "moe_gmm")
+    phase8_moe = {"case": moe_rec["case"], "ms": moe_rec["ms"]}
+    launch = run_launch_phase(args, dev, smi, train, phase8_moe)
+    moe_rec["launches_by_path"]["sharded_prefill"] = \
+        launch.pop("sharded_prefill_launches")
+    moe_rec["sharded_dispatch"] = launch
+    print(f"launch phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB; {time.perf_counter() - t_start:.2f} s in all")

@@ -11,11 +11,16 @@ float32.
 
 The reference's ``pin`` and ``pin_batch`` constrain shardings over a
 device mesh, and ``name_for_remat`` tags a tensor for a
-``save_only_these_names`` remat policy; on one card there is nothing to
-pin, and the port keeps the tagged block outputs by checkpointing each
-block's body on its own (``blocks.layer_forward(remat_blocks=True)``), so
-all three are the identity here. ``embed_lookup`` and
-``kv_cache_update`` keep only the reference's branch without a mesh, and
+``save_only_these_names`` remat policy; the port keeps the tagged block
+outputs by checkpointing each block's body on its own
+(``blocks.layer_forward(remat_blocks=True)``), and a sharding constraint
+changes no value, so all three are the identity here. ``_mesh_axes``,
+``_dp`` and ``_axis_size`` read the live shape-only mesh
+(``launch/mesh.py``) as the reference's read ``thread_resources``;
+``moe.apply_moe`` selects its sharded dispatch by them. The sharded
+branches of ``embed_lookup`` and ``kv_cache_update`` compute the values
+of their one-card branches (the reference's ``_policy_equiv_check.py``
+holds them to exact equality), so the port keeps only those, and
 ``chunked_cross_entropy`` its branch without ``ce_vocab_sharded``.
 """
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch import mesh as launch_mesh
 
 NEG_INF = -1e30
 
@@ -37,13 +44,31 @@ def normal_(w, std: float, generator):
     return w
 
 
+def _mesh_axes():
+    """The live mesh's axis names, or None without one."""
+    m = launch_mesh.current()
+    return None if m is None else m.axis_names
+
+
+def _dp(axes):
+    return ("pod", "data") if "pod" in axes else "data"
+
+
+def _axis_size(name) -> int:
+    """Product of the live mesh's axis sizes for a name or tuple of names
+    (1 without a mesh)."""
+    m = launch_mesh.current()
+    return 1 if m is None else m.size_of(name)
+
+
 def pin(x, spec_fn):
-    """The identity: one card has no mesh to constrain ``x`` over."""
+    """The identity: a sharding constraint changes no value, and one card
+    holds every shard."""
     return x
 
 
 def pin_batch(x):
-    """The identity: one card has no batch axis to pin ``x`` to."""
+    """The identity, as :func:`pin`."""
     return x
 
 

@@ -10,9 +10,13 @@ card; on the CPU, and on the card's plain path, it is the reference's
 three einsums in the parameters' dtype. The combine accumulates in
 float32.
 
-The reference's ``apply_moe_sharded`` dispatches per data shard inside
-``shard_map`` over a device mesh; one card has no mesh, so only the
-global formulation is ported.
+Under a policy with ``constrain_activations`` (``opt``) and a live mesh
+with ``data`` and ``model`` axes (``launch/mesh.py``), ``apply_moe``
+takes :func:`apply_moe_sharded`, the reference's ``shard_map`` dispatch:
+each data shard routes its own tokens against a local capacity, and the
+tensor-parallel slices of the expert FFN are summed. One card holds
+every shard: the shards are a leading axis of one tensor, and the grouped
+FFN of all of them is one ``moe_gmm`` launch a model slice.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import policy
 from repro_torch.kernels.moe_gmm import ops as moe_ops
 from repro_torch.models import common
 
@@ -71,45 +76,115 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     """x: [T, D] (already flattened). Returns (y [T, D], MoEStats).
 
     ``kernels`` lets a CUDA call run the grouped FFN as the ``moe_gmm``
-    kernel (on the CPU it has no effect)."""
+    kernel (on the CPU it has no effect). Under the ``opt`` policy and a
+    live mesh whose axes divide the tokens, the FFN width and the model
+    width this dispatches to :func:`apply_moe_sharded`, as the reference
+    does; otherwise it is the global dispatch, one shard of it."""
+    axes = common._mesh_axes()
+    T, D = x.shape
+    n_ff = p.w_in.shape[2]
+    if policy.current().constrain_activations and axes \
+            and "model" in axes and "data" in axes \
+            and T % common._axis_size(common._dp(axes)) == 0 \
+            and n_ff % common._axis_size("model") == 0 \
+            and D % common._axis_size("model") == 0:
+        return apply_moe_sharded(p, x, top_k=top_k,
+                                 capacity_factor=capacity_factor,
+                                 activation=activation, kernels=kernels)
+    return _dispatch(p, x, 1, 1, top_k=top_k,
+                     capacity_factor=capacity_factor, activation=activation,
+                     kernels=kernels)
+
+
+def apply_moe_sharded(p, x, *, top_k: int, capacity_factor: float,
+                      activation: str = "silu", kernels: bool = True):
+    """The reference's ``shard_map`` dispatch over the live mesh: |dp|
+    data shards (dp: ``data``, with ``pod`` in front when the mesh has
+    one) and |model| slices of the FFN width (:func:`_dispatch`).
+    Returns (y [T, D], MoEStats)."""
+    axes = common._mesh_axes()
+    return _dispatch(p, x, common._axis_size(common._dp(axes)),
+                     common._axis_size("model"), top_k=top_k,
+                     capacity_factor=capacity_factor, activation=activation,
+                     kernels=kernels)
+
+
+def _expert_ffn(buckets, w_gate, w_in, w_out, activation: str):
+    """The three einsums of the grouped FFN over ``[..., E, C, D]``
+    buckets, in the weights' dtype."""
+    g = torch.einsum("...ecd,edf->...ecf", buckets, w_gate)
+    h = torch.einsum("...ecd,edf->...ecf", buckets, w_in)
+    h = common.activate(g, activation) * h
+    return torch.einsum("...ecf,efd->...ecd", h, w_out)
+
+
+def _dispatch(p, x, n_dp: int, n_model: int, *, top_k: int,
+              capacity_factor: float, activation: str, kernels: bool):
+    """The dispatch over ``n_dp`` data shards, a leading axis: x [T, D] →
+    [n_dp, T_l, D]. Each shard routes its own tokens, ranks each (token,
+    choice) within its expert in its own token order (a masked cumsum)
+    and keeps at most ``C_l = max(1, int(cf·T_l·k/E))`` an expert; a
+    dropped choice goes to a sink row that the FFN never sees. ``load``,
+    the mean router probability, the kept count and the total are summed
+    over the shards, as the reference's ``psum``s are; the combine is
+    local and accumulates in float32. One shard is the global dispatch.
+
+    ``n_model`` slices of the FFN width F: each slice's ``[E, C_l, D]``
+    partial output is cast to x's dtype and the partials are summed, as
+    the reference casts before its ``psum_scatter``. On the card
+    (``kernels``) the shards' buckets ``[n_dp, E, C_l, D]`` are laid out
+    as ``[E, n_dp·C_l, D]``, since every shard holds the same experts, and
+    the grouped FFN of all the shards is one ``moe_gmm`` launch a slice;
+    on the CPU, and with ``kernels=False``, it is the three einsums."""
     T, D = x.shape
     E = p.router.shape[1]
-    logits = x.float() @ p.router                             # [T, E]
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(x.float() @ p.router, dim=-1)       # [T, E]
     gate_vals, expert_idx = top_k_choices(probs, top_k)       # [T, k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    C = max(1, int(capacity_factor * T * top_k / E))
-    # rank of each (token, choice) within its expert, in token order
-    flat_e = expert_idx.reshape(-1)                           # [T*k]
-    onehot = F.one_hot(flat_e, E).to(torch.int32)             # [T*k, E]
-    rank = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    my_rank = rank.gather(1, flat_e[:, None])[:, 0]
+    Tl = T // n_dp
+    xl = x.reshape(n_dp, Tl, D)
+    C = max(1, int(capacity_factor * Tl * top_k / E))
+    flat_e = expert_idx.reshape(n_dp, Tl * top_k)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)             # [dp, Tl*k, E]
+    rank = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    my_rank = rank.gather(2, flat_e[..., None])[..., 0]       # [dp, Tl*k]
     keep = my_rank < C
-    load = onehot.sum(dim=0, dtype=torch.int32)
+    load = onehot.sum(dim=(0, 1), dtype=torch.int32)
 
-    # tokens into [E, C, D] buckets; a dropped choice goes to sink row E
-    tok_of_flat = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    # tokens into [dp, E, C, D] buckets; a dropped choice goes to sink row E
+    shard = torch.arange(n_dp, device=x.device)[:, None]      # [dp, 1]
+    tok_of_flat = torch.arange(Tl, device=x.device) \
+        .repeat_interleave(top_k)[None]                       # [1, Tl*k]
     e_idx = torch.where(keep, flat_e, E)
     c_idx = torch.where(keep, my_rank, 0)
-    buckets = x.new_zeros((E + 1, C, D))
-    buckets[e_idx, c_idx] = x[tok_of_flat]
-    buckets = buckets[:E]
+    buckets = x.new_zeros((n_dp, E + 1, C, D))
+    buckets[shard, e_idx, c_idx] = xl[shard, tok_of_flat]
+    buckets = buckets[:, :E]
 
-    if kernels and x.is_cuda:
-        out = moe_ops.moe_gmm(buckets, p.w_gate, p.w_in, p.w_out,
-                              activation=activation)
-    else:
-        g = torch.einsum("ecd,edf->ecf", buckets, p.w_gate)
-        h = torch.einsum("ecd,edf->ecf", buckets, p.w_in)
-        h = common.activate(g, activation) * h
-        out = torch.einsum("ecf,efd->ecd", h, p.w_out)        # [E, C, D]
+    card = kernels and x.is_cuda
+    if card:    # every shard's rows of an expert together: [E, dp·C, D]
+        rows = buckets.transpose(0, 1).reshape(E, n_dp * C, D)
+    out = None
+    Fs = p.w_in.shape[2] // n_model
+    for j in range(n_model):
+        sl = slice(j * Fs, (j + 1) * Fs)
+        w = (p.w_gate[:, :, sl], p.w_in[:, :, sl], p.w_out[:, sl])
+        if card:
+            part = moe_ops.moe_gmm(rows, *(t.contiguous() for t in w),
+                                   activation=activation)
+            part = part.reshape(E, n_dp, C, D).transpose(0, 1)
+        else:
+            part = _expert_ffn(buckets, *w, activation)
+        part = part.to(x.dtype)
+        out = part if out is None else out + part
 
     # combine back, weighted by the (renormalised) gates
-    contrib = out[torch.where(keep, flat_e, 0), c_idx]        # [T*k, D]
-    w = torch.where(keep, gate_vals.reshape(-1), 0.0)
+    contrib = out[shard, torch.where(keep, flat_e, 0), c_idx]  # [dp, Tl*k, D]
+    gw = torch.where(keep, gate_vals.reshape(n_dp, -1), 0.0)
     y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    y.index_add_(0, tok_of_flat, contrib.float() * w[:, None])
+    y.index_add_(0, (shard * Tl + tok_of_flat).reshape(-1),
+                 (contrib.float() * gw[..., None]).reshape(-1, D))
 
     # Switch-style load-balancing auxiliary loss
     me = probs.mean(dim=0)

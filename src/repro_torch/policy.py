@@ -11,15 +11,18 @@ On one card the port honours the fields that shape its computation:
   * ``remat_unit`` — checkpoint each scanned unit of the layer stack
     (``models/transformer.py``);
   * ``remat_save_block_out`` — with ``remat_unit``, keep the block
-    outputs and recompute each block's body alone.
+    outputs and recompute each block's body alone;
+  * ``constrain_activations`` — with a live shape-only mesh
+    (``launch/mesh.py``), ``moe.apply_moe`` dispatches per data shard
+    (``moe.apply_moe_sharded``), as the reference's does;
+  * ``embed_lookup_model_sharded`` — the embedding's partition rule in
+    ``launch/sharding.param_pspecs``.
 
-The others steer GSPMD over a device mesh and have no one-card meaning:
-``embed_lookup_model_sharded``, ``constrain_activations``,
-``ce_vocab_sharded``, ``ar_dtype_bf16``, ``pin_grads``,
+The others steer GSPMD's partitioning and its collectives, which one
+card does not run: ``ce_vocab_sharded``, ``ar_dtype_bf16``, ``pin_grads``,
 ``kv_local_update`` and ``recurrent_local``. They are kept, with the
 reference's values in every named policy, so that the names and the
-policies are the reference's; the port reads none of them, as
-``moe.apply_moe_sharded`` has no counterpart (``models/moe.py``).
+policies are the reference's.
 """
 from __future__ import annotations
 

@@ -2057,3 +2057,85 @@ def test_encdec_model_kernel_path_matches_plain_on_card(aid):
                 assert _rel_rms(sk.v, sp.v) <= 0.05
             tok = lp.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
+
+
+def _sharded_moe(dev, dtype, T=256, D=64, F=128, E=4):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe.init_moe(D, F, E, dtype, device=dev, generator=gen)
+    x = torch.randn(T, D, generator=gen, device=dev).to(dtype)
+    return p, x
+
+
+def _moe_under(mesh_shape, p, x, cf, kernels=True):
+    """``apply_moe`` under the opt policy and a shape-only mesh (None: the
+    global dispatch), and the ``moe_gmm`` launches it made."""
+    from repro_torch import policy
+    from repro_torch.launch.mesh import Mesh
+    prev = policy.current()
+    policy.set_policy("opt")
+    before = moe_ops.moe_gmm.launches
+    try:
+        with torch.no_grad():
+            if mesh_shape is None:
+                out = moe.apply_moe(p, x, top_k=2, capacity_factor=cf,
+                                    kernels=kernels)
+            else:
+                with Mesh(("data", "model"), mesh_shape):
+                    out = moe.apply_moe(p, x, top_k=2, capacity_factor=cf,
+                                        kernels=kernels)
+        torch.cuda.synchronize()
+    finally:
+        policy.set_policy(prev)
+    return out, moe_ops.moe_gmm.launches - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sharded_moe_dispatch_bit_identical_to_global_on_card(dtype):
+    """At a dropless capacity the (4, 1) mesh's dispatch, its 4 shards'
+    buckets in one ``moe_gmm`` launch, equals the global dispatch's kernel
+    path bit for bit: each row of the grouped FFN is independent of its
+    position."""
+    dev = _cuda()
+    p, x = _sharded_moe(dev, dtype)
+    (yg, sg), ng = _moe_under(None, p, x, 2.0)
+    (ys, ss), ns = _moe_under((4, 1), p, x, 2.0)
+    assert ng == ns == 1
+    assert torch.equal(ys, yg)
+    assert torch.equal(ss.load, sg.load)
+    assert float(ss.dropped_fraction) == float(sg.dropped_fraction) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)])
+def test_sharded_moe_dispatch_one_launch_a_model_slice_on_card(mesh_shape):
+    """At a capacity that drops, the sharded kernel path launches
+    ``moe_gmm`` once a model slice and matches its plain path: routing
+    and drops exactly, y within the bf16 tolerance."""
+    dev = _cuda()
+    p, x = _sharded_moe(dev, torch.bfloat16)
+    (yk, sk), nk = _moe_under(mesh_shape, p, x, 0.75)
+    (yp, sp), npl = _moe_under(mesh_shape, p, x, 0.75, kernels=False)
+    assert (nk, npl) == (mesh_shape[1], 0)
+    assert torch.equal(sk.load, sp.load)
+    assert float(sk.dropped_fraction) == float(sp.dropped_fraction) > 0
+    tol = LM_TOL["bfloat16"]
+    _close(yk, yp, tol, f"sharded {mesh_shape}")
+
+
+@pytest.mark.gpu
+def test_sharded_moe_dispatch_refuses_a_gradient_on_card():
+    dev = _cuda()
+    p, x = _sharded_moe(dev, torch.bfloat16)
+    from repro_torch import policy
+    from repro_torch.launch.mesh import Mesh
+    prev = policy.current()
+    policy.set_policy("opt")
+    before = moe_ops.moe_gmm.launches
+    try:
+        with Mesh(("data", "model"), (4, 1)), \
+                pytest.raises(RuntimeError, match="no gradient"):
+            moe.apply_moe(p, x, top_k=2)
+    finally:
+        policy.set_policy(prev)
+    assert moe_ops.moe_gmm.launches == before

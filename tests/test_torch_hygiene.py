@@ -17,7 +17,8 @@ from repro_torch.serve import engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imports(path):
