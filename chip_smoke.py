@@ -304,6 +304,26 @@ Phases, each fatal on failure:
    ``flash_attention`` and ``moe_gmm`` launch once a layer, and the
    kernel path is held against the plain path on its expert choices by
    phase 12's rule.
+17. the protocol analyzer's card-only parts (``repro_torch.analysis``),
+   last, (c) first and (a) last. (a) K3: every (function, threads,
+   dynamic shared memory) the wrappers recorded as they launched in
+   phases 3-16 and (c) (``kernel_audit.launched``), each kernel at least
+   once, against its
+   built function's static shared memory and registers
+   (``cuobjdump --dump-resource-usage``):
+   static plus dynamic shared memory within the card's
+   ``shared_memory_per_block_optin``, which must equal ``_cuda.MAX_SMEM``,
+   and registers times threads within an SM's 65,536. (b) The
+   dispatch-level audit (A1-A4) on CUDA tensors: the four entry points of
+   ``graph_audit.ENTRYPOINTS`` at their fixture size, and one new-order
+   sub-round at phase 2's scale (50 warehouses, 60 threads, reloaded) on
+   the unfused path; no active finding (a missing A1 tag, or a grant that
+   does not flow into the release and the commit, is one: W01). (c) The kernels' run
+   checks (``analysis/sanitize.py``): each of the seven kernels three
+   times on adversarial inputs inside canary margins, over scratch
+   poisoned with 0x00 and 0xFF: margins intact, the runs bit-identical,
+   the plain version held. ``compute-sanitizer`` refuses this card
+   ("Device not supported"), so it is not run. Every part is fatal.
 
 It prints the card, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -346,7 +366,7 @@ from repro_torch.core.tsoracle import PartitionedVectorOracle  # noqa: E402
 from repro_torch.core.tsoracle import CompressedVectorOracle  # noqa: E402
 from repro_torch.core.tsoracle import NaiveOracleAdapter  # noqa: E402
 from repro_torch.db import tpcc, workload  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, _cuda  # noqa: E402
 from repro_torch.kernels.commit import ops as commit_ops  # noqa: E402
 from repro_torch.kernels.commit import ref as commit_ref  # noqa: E402
 from repro_torch.kernels.hash_probe import ops as probe_ops  # noqa: E402
@@ -375,6 +395,9 @@ from repro_torch.launch.mesh import Mesh, make_host_mesh  # noqa: E402
 from repro_torch.data import pipeline as train_data  # noqa: E402
 from repro_torch.train import optimizer as train_opt  # noqa: E402
 from repro_torch.train import trainstep  # noqa: E402
+from repro_torch.analysis import graph_audit  # noqa: E402
+from repro_torch.analysis import kernel_audit  # noqa: E402
+from repro_torch.analysis import sanitize  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the FP32 rate
 # outside the tensor cores, taken as the rate of 32-bit integer work
@@ -4902,6 +4925,106 @@ def run_launch_phase(args, dev, smi, train, phase8_moe):
     return dict(sharded, sharded_prefill_launches=launches["moe_gmm"])
 
 
+# ------------------------------- the protocol analyzer (phase 17) ----
+def run_k3_part(smi):
+    """Phase 17 (a): K3 on the built functions, at every block shape the
+    wrappers launched in this process (phases 3-16 and (c))."""
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    points = kernel_audit.launched(COUNTERS)
+    unseen = set(_build.KERNELS) - {p.library for p in points}
+    check(not unseen, f"K3 on the card: no launch recorded of {unseen}")
+    findings, rows = kernel_audit.card_k3(optin, points)
+    print(f"K3: shared_memory_per_block_optin {optin} B, _cuda.MAX_SMEM "
+          f"{_cuda.MAX_SMEM} B, {kernel_audit.REGS_PER_SM} "
+          f"registers an SM | {smi}")
+    for r in rows:
+        p = r.spec
+        print(f"  {p.library}: {p.function} [{p.label}]: shared "
+              f"{r.static_smem} static + {p.smem} dynamic = {r.smem} B "
+              f"(margin {optin - r.smem} B, "
+              f"{100 * (optin - r.smem) / optin:.1f} %); {r.registers} registers × {p.threads} threads = "
+              f"{r.registers_a_block} (margin "
+              f"{kernel_audit.REGS_PER_SM - r.registers_a_block})")
+    check(not findings, "K3 on the card: "
+          + "; ".join(f.render() for f in findings))
+
+
+def run_graph_part(args, dev, smi):
+    """Phase 17 (b): A1-A4 over the entry points and a new-order
+    sub-round at phase 2's scale, on CUDA tensors."""
+    t0 = time.perf_counter()
+    findings, reports = graph_audit.audit_tree(dev)
+    for r in reports:
+        print(f"  graph audit {r.name}: {r.status} {r.detail} {r.n_ops} ops, "
+              f"{r.n_findings} active findings, tags "
+              f"{ {k: v['from'] for k, v in r.tags.items()} }")
+        check(r.status == "ok", f"graph audit: {r.name} failed: {r.detail}")
+    t_entry = time.perf_counter() - t0
+    cfg = dataclasses.replace(SLICE, fused_commit=False, batched_probe=False)
+    oracle = VectorOracle(cfg.n_threads)
+    t0 = time.perf_counter()
+    lay, st = tpcc.init_tpcc(
+        cfg, oracle, torch.Generator(device=dev).manual_seed(args.seed + 17),
+        device=dev)
+    inp = workload.neworder_stream(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed + 170))(0)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    tbl = st.nam.table
+    out = {}
+
+    def sub_round():
+        out["round"] = tpcc.neworder_round(cfg, lay, st, oracle, inp)
+
+    t0 = time.perf_counter()
+    fs, rep = graph_audit.audit_callable(
+        sub_round, name="tpcc.neworder_round", expects_locks=True,
+        sources=(st.nam.oracle_state.vec, tbl.cur_hdr, tbl.old_hdr,
+                 tbl.ovf_hdr))
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    findings += fs
+    committed = int(out["round"].committed.sum())
+    print(f"  graph audit tpcc.neworder_round ({cfg.n_warehouses} "
+          f"warehouses, {cfg.n_threads} threads, unfused): {rep.n_ops} ops, {rep.n_findings} active findings, "
+          f"tags { {k: v['from'] for k, v in rep.tags.items()} }; "
+          f"{committed} of {cfg.n_threads} committed")
+    for f in findings:
+        print(f"  {f.render()}")
+    active = [f for f in findings if not f.suppressed]
+    check(not active, "graph audit: active findings: "
+          + "; ".join(f.render() for f in active))
+    print(f"graph audit: entry points {t_entry:.2f} s, load {t_load:.2f} s, "
+          f"the sub-round under the audit {t_round:.2f} s | {smi}")
+    del st, lay, tbl, out
+    torch.cuda.empty_cache()
+
+
+def run_sanitize_part(smi):
+    """Phase 17 (c): the kernels' run checks."""
+    t0 = time.perf_counter()
+    findings, results = sanitize.run_all()
+    for r in results:
+        print(f"  run check {r.kernel}: {r.launches} launches, margins "
+              f"{'intact' if r.margins_intact else 'OVERWRITTEN'}, poisons "
+              f"{'agree' if r.poisons_agree else 'DIFFER'}, repeats "
+              f"{'agree' if r.repeats_agree else 'DIFFER'}, plain "
+              f"{r.plain or 'held'}")
+    check(not findings, "kernel run checks: "
+          + "; ".join(f.render() for f in findings))
+    print(f"kernel run checks: {len(results)} kernels, "
+          f"{time.perf_counter() - t0:.2f} s | {smi}")
+
+
+def run_analysis_phase(args, dev, smi):
+    """Phase 17: the analyzer's card-only parts; (c) first, so that (a)
+    also sees the run checks' launches (and has some when the phase runs
+    alone)."""
+    run_sanitize_part(smi)
+    run_graph_part(args, dev, smi)
+    run_k3_part(smi)
+
+
 # -------------------------------------------------------------- main ----
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5330,6 +5453,12 @@ def main(argv=None):
         launch.pop("sharded_prefill_launches")
     moe_rec["sharded_dispatch"] = launch
     print(f"launch phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 17. the protocol analyzer's card-only parts ----------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    run_analysis_phase(args, dev, smi)
+    print(f"analysis phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB; {time.perf_counter() - t_start:.2f} s in all")

@@ -44,7 +44,9 @@ def take_snapshot(log: SnapshotLog, now, vec) -> SnapshotLog:
     ``argmax``/``argmin`` take the first index of a tie in torch as in JAX,
     so the slot is the reference's."""
     unused = log.times < 0
+    # analysis: safe(W03): boolean unused-mask operand — no sentinels
     first_unused = unused.to(torch.int8).argmax()
+    # analysis: safe(W03): where-guarded — picked only when no -1 remains
     oldest = log.times.argmin()
     pos = torch.where(unused.any(), first_unused, oldest)[None]
     log.times.index_fill_(0, pos, int(now))

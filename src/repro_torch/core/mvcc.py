@@ -113,6 +113,7 @@ def _ring_scan(region_hdr, next_ptr, slots, ts_vec, *, skip_sentinel: bool):
         sentinel = (hdr_ops.commit_ts(h) == 0) & (hdr_ops.thread_id(h) == 0) \
             & hdr_ops.is_moved(h)
         ok = ok & ~sentinel
+    # analysis: safe(W03): boolean visibility-mask operand — no sentinels
     first = ok.to(torch.int8).argmax(dim=1)
     return pos, h, ok, first, ok.any(dim=1)
 
@@ -244,6 +245,7 @@ def version_mover(tbl: VersionedTable, budget_per_record: int = 1, *,
             has = has & ((tbl.ovf_hdr[r, opos, hdr_ops.META]
                           & hdr_ops.DELETED_BIT) != 0)
         rows = rows_of(has)
+        # analysis: safe(W03): boolean not-moved mask operand — no sentinels
         src = _pick(pos[rows], not_moved[rows].to(torch.int8).argmax(dim=1))
         mh = tbl.old_hdr[rows, src]
         md = tbl.old_data[rows, src]

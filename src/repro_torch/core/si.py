@@ -18,8 +18,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch._u32 import gidx, sidx, to_i32, u64
-from repro_torch.core import cas, hashtable as ht, header as hdr_ops, mvcc, \
-    wal
+from repro_torch.core import annotations as anno, cas, hashtable as ht, \
+    header as hdr_ops, mvcc, wal
 from repro_torch.core.mvcc import VersionedTable
 from repro_torch.core.tsoracle import VectorOracle, VectorState
 
@@ -179,17 +179,18 @@ def commit_write_sets(table: VersionedTable, req_slots, req_expected,
     ones. A transaction commits iff ``txn_ok`` and none of its active
     requests (plus ``ext_fails``) failed. Updates ``table`` in place."""
     n_txn = txn_ok.shape[0]
-    granted = cas.arbitrate(table.cur_hdr, req_slots, req_expected,
-                            req_prio, req_active).granted
+    granted = anno.tag(cas.arbitrate(table.cur_hdr, req_slots, req_expected,
+                                     req_prio, req_active).granted,
+                       anno.LOCK_GRANTED)
     effective, fails = _fail_counts(table, req_slots, req_active, txn_of_req,
                                     granted, n_txn)
     total = fails if ext_fails is None else fails + ext_fails
-    committed = (total == 0) & txn_ok
+    committed = anno.tag((total == 0) & txn_ok, anno.COMMIT_COMMITTED)
 
     txn_c = committed[gidx(txn_of_req, n_txn)]
     do_install = effective & txn_c
     mvcc.install(table, req_slots, new_hdr, new_data, do_install)
-    release_mask = granted & ~txn_c
+    release_mask = anno.tag(granted & ~txn_c, anno.LOCK_RELEASED)
     cas.release(table.cur_hdr, req_slots, release_mask)
     return CommitOut(table=table, granted=granted, committed=committed,
                      do_install=do_install, release_mask=release_mask,
@@ -323,8 +324,11 @@ def run_round(table: VersionedTable, oracle: VectorOracle,
             req_expected, req_prio, req_active, txn_of_req,
             new_hdr.reshape(-1, 2), new_data.reshape(-1, W), txn_ok, slot,
             cts, torch.zeros((T,), dtype=torch.int32, device=dev))
-        committed, do_install = fc.committed, fc.do_install
-        release_mask = fc.granted & ~committed[txn_of_req.to(torch.int64)]
+        granted = anno.tag(fc.granted, anno.LOCK_GRANTED)
+        committed = anno.tag(fc.committed, anno.COMMIT_COMMITTED)
+        do_install = fc.do_install
+        release_mask = anno.tag(granted & ~committed[txn_of_req.to(
+            torch.int64)], anno.LOCK_RELEASED)
         if not std_vis:
             oracle.make_visible(state, batch.tid, cts, committed)
     else:

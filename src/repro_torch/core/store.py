@@ -38,8 +38,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._u32 import gidx, sidx, to_i32, u64
-from repro_torch.core import cas, gc as gc_ops, hashtable as ht, \
-    header as hdr_ops, mvcc, wal
+from repro_torch.core import annotations as anno, cas, gc as gc_ops, \
+    hashtable as ht, header as hdr_ops, mvcc, wal
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.mvcc import VersionedTable
 from repro_torch.core.si import TxnBatch
@@ -443,7 +443,8 @@ def distributed_round(n_shards: int, oracle: VectorOracle,
             batch.tid[:, None].expand(T, WS).reshape(-1), req_active,
             txn_of_req, new_hdr.reshape(-1, 2), new_data.reshape(-1, W),
             txn_ok, slot_ids, cts, fused_commit=fused_commit)
-        release_mask = granted & ~committed[gidx(txn_of_req, T)]
+        release_mask = anno.tag(granted & ~committed[gidx(txn_of_req, T)],
+                                anno.LOCK_RELEASED)
 
         # ---- 9. make visible --------------------------------------------
         if journal is not None:   # the outcome after the decision (§3.2)
@@ -511,15 +512,16 @@ def commit_on_servers(table: VersionedTable, vec, n_shards: int, req_slots,
                              for s in range(S)])                 # [S, T]
         total = _psum(fails)
         applied = [commit(s, total - fails[s]) for s in range(S)]
-        return (applied[0].committed,
-                torch.stack([a.granted for a in applied]),
+        return (anno.tag(applied[0].committed, anno.COMMIT_COMMITTED),
+                anno.tag(torch.stack([a.granted for a in applied]),
+                         anno.LOCK_GRANTED),
                 torch.stack([a.do_install for a in applied]))
 
     # ---- 5. validate + lock on the owning server -------------------------
     rows = (bases + lslots).reshape(-1)       # server s's local slots
-    granted = cas.arbitrate(
+    granted = anno.tag(cas.arbitrate(
         table.cur_hdr, rows, req_expected.repeat(S, 1), req_prio.repeat(S),
-        mine.reshape(-1)).granted.reshape(S, -1)
+        mine.reshape(-1)).granted.reshape(S, -1), anno.LOCK_GRANTED)
     safe = torch.where(mine, bases + lslots, 0).reshape(-1)
     vpos = torch.remainder(table.next_write[safe].to(torch.int64),
                            table.n_old)
@@ -530,14 +532,16 @@ def commit_on_servers(table: VersionedTable, vec, n_shards: int, req_slots,
     fails = torch.zeros((S, T + 1), dtype=torch.int32, device=txn_ok.device)
     fails.scatter_add_(1, sidx(txn_of_req, T).expand(S, -1),
                        (mine & ~effective).to(torch.int32))
-    committed = (_psum(fails[:, :T]) == 0) & txn_ok
+    committed = anno.tag((_psum(fails[:, :T]) == 0) & txn_ok,
+                         anno.COMMIT_COMMITTED)
 
     # ---- 7./8. install / release on the owning server --------------------
     txn_c = committed[gidx(txn_of_req, T)]
     do_install = effective & txn_c
     mvcc.install(table, rows, new_hdr.repeat(S, 1), new_data.repeat(S, 1),
                  do_install.reshape(-1))
-    cas.release(table.cur_hdr, rows, (granted & ~txn_c).reshape(-1))
+    cas.release(table.cur_hdr, rows,
+                anno.tag(granted & ~txn_c, anno.LOCK_RELEASED).reshape(-1))
     return committed, granted, do_install
 
 

@@ -210,6 +210,7 @@ def _pick_replica(j: Journal, replica, survivors) -> int:
     alive = np.asarray(torch.as_tensor(survivors).cpu().numpy(), bool)
     if not alive.any():
         raise ValueError("no surviving journal replica — unrecoverable")
+    # analysis: safe(W03): boolean survivor mask, non-empty checked above
     return int(np.argmax(alive))
 
 

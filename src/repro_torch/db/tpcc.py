@@ -1418,6 +1418,7 @@ def _inflight_intents(cfg: TPCCConfig, lay: TPCCLayout, st: TPCCState,
     expected = tbl.cur_hdr[gidx(torch.where(req_active, req_slots, 0),
                                 tbl.n_records)]
     prio = batch.tid[:, None].expand(batch.write_mask.shape).reshape(-1)
+    # analysis: safe(W01): deliberate crash window — locks stay abandoned
     cas.arbitrate(tbl.cur_hdr, req_slots, expected, prio, req_active)
     # the intent lands on every replica, the outcome never does; the
     # payload is irrelevant, since these entries never replay

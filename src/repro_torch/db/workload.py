@@ -56,6 +56,8 @@ def _gumbel(gen, shape):
 def _categorical(gen, logits, n: int):
     """``n`` draws from the categorical distribution ``softmax(logits)``
     (Gumbel-max), int32."""
+    # the argmax of the noised logits is the categorical draw itself
+    # analysis: safe(W03): float logits plus Gumbel noise — no sentinels
     return (logits[None, :] + _gumbel(gen, (n, logits.shape[0]))).argmax(
         dim=1).to(torch.int32)
 

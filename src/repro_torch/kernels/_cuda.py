@@ -5,10 +5,13 @@ gradient, and launching with a count.
 Every C entry takes the CUDA stream as its last argument and returns the
 CUDA error of its launch (0 when it launched, or had nothing to launch).
 A wrapper's count lives on the original wrapper object, so it stays
-reachable when a caller rebinds the module's name.
+reachable when a caller rebinds the module's name. So does its
+``launched``: how often each kernel function ran at each block shape,
+which the K3 check on the card reads (``analysis/kernel_audit.py``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -90,14 +93,24 @@ def softcap_args(kernel: str, softcap):
     return 1, float(softcap)
 
 
-def launch(wrapper, fn, args, dev, held, out):
+def counted(wrapper):
+    """Give ``wrapper`` its count of launches and its ``launched``."""
+    wrapper.launches = 0
+    wrapper.launched = collections.Counter()
+
+
+def launch(wrapper, fn, args, dev, held, out, points):
     """Launch ``fn(*args)`` on the current stream of ``dev`` and count it
     on ``wrapper``; ``held`` keeps every tensor the arguments point at
-    alive until the launch is enqueued. Returns ``out``."""
+    alive until the launch is enqueued. ``points`` are the ``(function,
+    threads a block, dynamic shared bytes a block)`` of each kernel
+    function the C entry runs, as ``cu++filt`` names it without its
+    namespace; they are added to ``wrapper.launched``. Returns ``out``."""
     err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {err}")
     wrapper.launches += 1
+    wrapper.launched.update(points)
     del held
     return out

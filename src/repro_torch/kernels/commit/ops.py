@@ -31,6 +31,7 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, *[_P] * 7, _I64,
 # the kernel: one cluster of BLOCKS blocks, each keeping LANE_BYTES for
 # every request of its share (the lane state), padded to 16 bytes
 BLOCKS, LANE_BYTES = 8, 25
+THREADS = 256   # a block (fused_commit.cu kThreads)
 # the kernel's arbitration table ([R, 2] int32: bid and vote per record)
 # for each (device, stream, record count). Every launch leaves it as it
 # found it (bids -1, votes 0), so it carries nothing from one call to the
@@ -106,7 +107,7 @@ def prepare(table: VersionedTable, vec, req_slots, req_expected, req_prio,
     def launch():
         arb = _arbitration(dev, torch.cuda.current_stream(dev), R)
         res = _cuda.launch(_COUNTER, entry, (*args, arb.data_ptr()), dev,
-                           held, out)
+                           held, out, launch_points(Q))
         _COUNTER.decide_launches += decide_only
         return res
     return launch
@@ -116,6 +117,15 @@ def smem_bytes(n_requests: int) -> int:
     """One block's lane state for ``n_requests``: in its shared memory, or
     its stride of the global scratch beyond ``_cuda.MAX_SMEM``."""
     return -(-(-(-n_requests // BLOCKS) * LANE_BYTES) // 16) * 16
+
+
+def launch_points(n_requests: int):
+    """The ``(function, threads, dynamic shared bytes)`` a launch over
+    ``n_requests`` runs: the lane state in shared memory, or none when it
+    goes to the global scratch."""
+    smem = smem_bytes(n_requests)
+    return (("fused_commit_kernel", THREADS,
+             smem if smem <= _cuda.MAX_SMEM else 0),)
 
 
 def fused_commit(table: VersionedTable, vec, req_slots, req_expected,
@@ -143,6 +153,6 @@ def fused_commit(table: VersionedTable, vec, req_slots, req_expected,
                           fails=fails)
 
 
-fused_commit.launches = 0
+_cuda.counted(fused_commit)
 fused_commit.decide_launches = 0   # the decide-only ones among ``launches``
 _COUNTER = fused_commit

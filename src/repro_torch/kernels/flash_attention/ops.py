@@ -34,6 +34,7 @@ HEAD_DIMS = (32, 64, 128, 256)
 _ROWS, _KEYS = 8, 32   # float32 route: query rows per warp, keys per sub-tile
 TC_BQ, TC_STAGES = 128, 3  # bf16 route: query rows per block, K/V ring depth
 _ATOM = 1024                # a 128-byte swizzle atom (8 rows), wgmma's
+TC_THREADS = 2 * 128 + 32   # bf16 route: two consumer warpgroups, a producer
 
 
 def tc_tiles(D: int):
@@ -52,6 +53,12 @@ def tc_smem_bytes(D: int) -> int:
     bq, bk = tc_tiles(D)
     return 8 * (1 + 3 * TC_STAGES) + _ATOM \
         + 2 * D * (bq + 2 * TC_STAGES * bk)
+
+
+def tc_points(D: int):
+    """The ``(function, threads, dynamic shared bytes)`` of a bf16
+    launch."""
+    return ((f"flash_tc_kernel<{D}>", TC_THREADS, tc_smem_bytes(D)),)
 
 
 def smem_bytes(bq: int, bk: int, D: int) -> int:
@@ -100,10 +107,12 @@ def prepare(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
     out = torch.empty_like(qf)
     if q.dtype == torch.bfloat16:
         bq, bk = tc_tiles(D)
-        smem = tc_smem_bytes(D)
+        points = tc_points(D)
     else:
         bq, bk = tile_sizes(bq, bk, Sq, Sk, D)
-        smem = smem_bytes(bq, bk, D)
+        points = ((f"flash_kernel<{D}>", bq // _ROWS * 32,
+                   smem_bytes(bq, bk, D)),)
+    smem = points[0][2]
     args = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
             code, B * Hq, Sq, Sk, D, Hq // Hkv, int(causal),
             *_cuda.window_args(window), use_cap, cap, float(scale), bq, bk,
@@ -113,7 +122,7 @@ def prepare(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
     return functools.partial(
         _cuda.launch, _COUNTER,
         _cuda.entry("flash_attention", _ARGTYPES), args, dev,
-        (qf, kf, vf), out)
+        (qf, kf, vf), out, points)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -134,5 +143,5 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     return of.reshape(B, Hq, Sq, D).transpose(1, 2)
 
 
-flash_attention.launches = 0
+_cuda.counted(flash_attention)
 _COUNTER = flash_attention

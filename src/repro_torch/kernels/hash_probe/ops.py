@@ -20,6 +20,7 @@ from repro_torch.kernels.hash_probe.ref import batched_probe_ref, \
     hash_probe_ref
 
 _P, _I, _I64 = _cuda.P, _cuda.I, _cuda.I64
+THREADS = 256   # a block of either kernel (probe_common.cuh kThreads)
 # the header planes and the timestamp vector, as both launches take them
 _TABLE_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _I]
 _ARGTYPES = {
@@ -64,7 +65,13 @@ def _launcher(name, args, n_q, held, out, dev):
         return lambda: out
     return functools.partial(
         _cuda.launch, _COUNTERS[name], _cuda.entry(name, _ARGTYPES[name]),
-        args, dev, held, out)
+        args, dev, held, out, launch_points(name))
+
+
+def launch_points(name):
+    """The ``(function, threads, dynamic shared bytes)`` kernel ``name``
+    launches."""
+    return ((f"{name}_kernel", THREADS, 0),)
 
 
 def prepare(dir_keys, dir_vals, table: VersionedTable, ts_vec,
@@ -144,6 +151,6 @@ def hash_probe(dir_keys, dir_vals, table: VersionedTable, ts_vec, queries,
                               max_probes=max_probes)()
 
 
-batched_probe.launches = 0
-hash_probe.launches = 0
+_cuda.counted(batched_probe)
+_cuda.counted(hash_probe)
 _COUNTERS = {"batched_probe": batched_probe, "hash_probe": hash_probe}

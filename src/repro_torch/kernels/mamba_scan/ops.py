@@ -79,6 +79,15 @@ def launch_shape(B: int, Di: int, bd=None, itemsize: int = 2):
     return B * -(-Di // bd), bd * LANES
 
 
+def launch_points(N: int, bd: int, chunk: int, itemsize: int):
+    """The ``(function, threads, dynamic shared bytes)`` of a launch of
+    ``bd`` channels a block (:func:`block_channels`) and stages of
+    ``chunk`` steps (:func:`chunk_steps`)."""
+    t = "__nv_bfloat16" if itemsize == 2 else "float"
+    return ((f"scan_kernel<{t}, {state_width(N)}>", bd * LANES,
+             smem_bytes(N, chunk, bd, itemsize)),)
+
+
 def _aligned(t):
     """``t``, or a copy of it whose data starts on a 16-byte boundary (the
     kernel's 16-byte copies need one)."""
@@ -138,9 +147,11 @@ def prepare(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64,
             B, S + pad_s, Di + pad_d, Nw, bd, chunk)
     return functools.partial(
         _cuda.launch, _COUNTER, _cuda.entry("mamba_scan", _ARGTYPES), args,
-        dev, (dt, x, Bm, Cm, A_log, D_skip), out)
+        dev, (dt, x, Bm, Cm, A_log, D_skip), out,
+        launch_points(N, bd, chunk, item))
 
 
+# analysis: safe(K5): h0 is the plain decode from a cache; prefill is h0=None
 def mamba_scan(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64,
                return_state=False):
     """dt, x: [B, S, Di]; Bm, Cm: [B, S, N] (one dtype); A_log: [Di, N]
@@ -162,5 +173,5 @@ def mamba_scan(dt, x, Bm, Cm, A_log, D_skip, *, bd=None, chunk: int = 64,
                    return_state=return_state)()
 
 
-mamba_scan.launches = 0
+_cuda.counted(mamba_scan)
 _COUNTER = mamba_scan

@@ -31,6 +31,9 @@ TC_TILE = (128, 128, 64)   # bf16 route: rows, columns and depth of a tile
 TC_STAGES = 4              # and the depth of its shared-memory ring
 _ALIGN = 8                 # bf16 values in 16 bytes: TMA's row alignment
 _ATOM = 1024               # a 128-byte swizzle atom (8 rows), wgmma's
+DOWN = 3                   # moe_gmm.cu's mode of the down product
+TC_THREADS = 2 * 128 + 32  # bf16 route: two consumer warpgroups, a producer
+THREADS = 256              # float32 route (moe_gmm.cu THREADS)
 
 
 def tc_smem_bytes(activation: str, down: bool) -> int:
@@ -45,6 +48,16 @@ def tc_smem_bytes(activation: str, down: bool) -> int:
     n_b = 1 if down or activation == "sq_relu" else 2
     return 2 * TC_STAGES * 8 + _ATOM \
         + TC_STAGES * 2 * (n_a * bm * bk + n_b * bk * bn)
+
+
+def launch_points(activation: str, bf16: bool):
+    """The ``(function, threads, dynamic shared bytes)`` of a launch's
+    gate/up product and its down product."""
+    modes = (ACTIVATIONS[activation], DOWN)
+    if not bf16:
+        return tuple((f"gmm_kernel<{m}>", THREADS, 0) for m in modes)
+    return tuple((f"gmm_tc_kernel<{m}>", TC_THREADS,
+                  tc_smem_bytes(activation, m == DOWN)) for m in modes)
 
 
 def check_alignment(D: int, F: int) -> None:
@@ -76,14 +89,14 @@ def prepare(x, w_gate, w_in, w_out, *, activation: str = "silu"):
                          f"w_gate {tuple(w_gate.shape)}, w_in "
                          f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)}")
     out = torch.empty_like(x)
-    if x.dtype == torch.bfloat16:
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
         check_alignment(D, F)
         ah = torch.empty((2, E, C, F), dtype=torch.bfloat16, device=dev)
-        smem = (tc_smem_bytes(activation, False),
-                tc_smem_bytes(activation, True))
     else:
         ah = torch.empty((E, C, F), dtype=torch.float32, device=dev)
-        smem = (0, 0)
+    points = launch_points(activation, bf16)
+    smem = tuple(p[2] for p in points)
     args = (x.data_ptr(), w_gate.data_ptr(), w_in.data_ptr(),
             w_out.data_ptr(), ah.data_ptr(), out.data_ptr(), code, E, C, D,
             F, ACTIVATIONS[activation], *smem)
@@ -91,7 +104,7 @@ def prepare(x, w_gate, w_in, w_out, *, activation: str = "silu"):
         return lambda: out
     return functools.partial(
         _cuda.launch, _COUNTER, _cuda.entry("moe_gmm", _ARGTYPES), args, dev,
-        (x, w_gate, w_in, w_out, ah), out)
+        (x, w_gate, w_in, w_out, ah), out, points)
 
 
 def moe_gmm(x, w_gate, w_in, w_out, *, activation: str = "silu"):
@@ -103,5 +116,5 @@ def moe_gmm(x, w_gate, w_in, w_out, *, activation: str = "silu"):
     return prepare(x, w_gate, w_in, w_out, activation=activation)()
 
 
-moe_gmm.launches = 0
+_cuda.counted(moe_gmm)
 _COUNTER = moe_gmm

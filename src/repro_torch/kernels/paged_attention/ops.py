@@ -80,6 +80,18 @@ def partitions(n_pages: int, part: int) -> int:
     return max(1, -(-n_pages // part))
 
 
+def launch_points(D: int, g: int, itemsize: int, n_pages: int, ps: int):
+    """The ``(function, threads, dynamic shared bytes)`` of launch 1, and
+    of the merge where a table spans several partitions."""
+    t = "__nv_bfloat16" if itemsize == 2 else "float"
+    part = default_part(ps)
+    points = [(f"paged_part_kernel<{t}, {D}, {group_size(g)}>",
+               ring(D, itemsize)[0] * 32, smem_bytes(D, g, itemsize, part))]
+    if partitions(n_pages, part) > 1:
+        points.append((f"paged_merge_kernel<{t}>", D, 0))
+    return tuple(points)
+
+
 def scratch_bytes(B: int, Hq: int, D: int, n_part: int) -> int:
     """Float32 partials of launch 1, ``acc [B, Hq, n_part, D]`` and
     ``(m, l) [B, Hq, n_part, 2]``; none with one partition a sequence
@@ -151,7 +163,8 @@ def prepare(q, k_pool, v_pool, page_table, kv_len, *, window=None,
         return lambda: out
     return functools.partial(
         _cuda.launch, _COUNTER, _cuda.entry("paged_attention", _ARGTYPES),
-        args, dev, (q, k_pool, v_pool, page_table, kv_len, scratch), out)
+        args, dev, (q, k_pool, v_pool, page_table, kv_len, scratch), out,
+        launch_points(D, g, q.element_size(), n_pages, ps))
 
 
 def paged_attention(q, k_pool, v_pool, page_table, kv_len, *, window=None,
@@ -167,5 +180,5 @@ def paged_attention(q, k_pool, v_pool, page_table, kv_len, *, window=None,
                    softcap=softcap, scale=scale)()
 
 
-paged_attention.launches = 0
+_cuda.counted(paged_attention)
 _COUNTER = paged_attention

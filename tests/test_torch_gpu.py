@@ -2139,3 +2139,76 @@ def test_sharded_moe_dispatch_refuses_a_gradient_on_card():
     finally:
         policy.set_policy(prev)
     assert moe_ops.moe_gmm.launches == before
+
+
+# ------------------------------------------- the analyzer's card checks ----
+@pytest.mark.gpu
+def test_k3_built_functions_fit_the_card():
+    """Every design point's function: static plus dynamic shared memory
+    within the card's opt-in limit (which is ``MAX_SMEM``), registers times
+    threads within an SM's register file."""
+    from repro_torch.analysis import kernel_audit
+    _cuda()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert optin == MAX_SMEM
+    _build.build_all()
+    findings, rows = kernel_audit.card_k3(optin)
+    assert not findings, [f.render() for f in findings]
+    assert len(rows) == len(kernel_audit.design_points())
+
+
+@pytest.mark.gpu
+def test_a_launch_records_its_function_and_block_shape():
+    """What the wrappers record as they launch, which phase 17's K3
+    checks: the bf16 and the float32 route of flash attention each add
+    their own function and block shape."""
+    _cuda()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 64, 2, 64, generator=g).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        before = flash_ops.flash_attention.launched.copy()
+        q = x.to(dtype)
+        flash_ops.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        got = flash_ops.flash_attention.launched - before
+        (point,) = got
+        assert got[point] == 1
+        if dtype == torch.bfloat16:
+            assert point == flash_ops.tc_points(64)[0]
+        else:
+            assert point[0] == "flash_kernel<64>"
+
+
+@pytest.mark.gpu
+def test_run_check_holds_on_batched_probe():
+    from repro_torch.analysis import sanitize
+    _cuda()
+    res = sanitize.check(sanitize.cases()["batched_probe"])
+    assert not sanitize.findings_of(res), res
+
+
+@pytest.mark.gpu
+def test_run_check_sees_a_write_past_a_buffer_and_an_unwritten_one():
+    """The guard itself: a launch that writes one element past its output
+    breaks a canary margin, and one that returns its output unwritten
+    differs between the two poisons."""
+    from repro_torch.analysis import sanitize
+    _cuda()
+
+    def past_the_end(args, kw):
+        out = torch.zeros_like(args[0])
+        torch.as_strided(out, (out.numel() + 1,), (1,),
+                         out.storage_offset()).fill_(7)
+        return [out]
+
+    def unwritten(args, kw):
+        return [torch.empty_like(args[0])]
+
+    make = lambda: ((torch.arange(64, dtype=torch.int32),), {})  # noqa
+    counter = lambda: probe_ops.batched_probe   # noqa: E731
+    for launch, field in ((past_the_end, "margins_intact"),
+                          (unwritten, "poisons_agree")):
+        res = sanitize.check(sanitize.Case("mutant", make, launch,
+                                           lambda a, kw, got: None, counter))
+        assert not getattr(res, field), res
+        assert sanitize.findings_of(res)

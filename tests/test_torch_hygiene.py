@@ -123,3 +123,11 @@ def test_train_entry_points_refuse_the_cpu_silently(monkeypatch):
     assert int(st.step) == 1 and torch.isfinite(metrics["loss"])
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_train.main(["--reduced", "--steps", "1"])
+
+
+def test_the_analyzer_is_among_the_checked_files():
+    analysis = ROOT / "src" / "repro_torch" / "analysis"
+    mine = [p for p in PORT_FILES if p.is_relative_to(analysis)]
+    assert {p.name for p in mine} >= {
+        "rules.py", "lint.py", "graph_audit.py", "kernel_audit.py",
+        "sanitize.py", "report.py", "__main__.py"}
