@@ -196,7 +196,12 @@ Phases, each fatal on failure:
    median decode step, decoded tokens/s, and over a profiled admission and
    4 profiled steps the host syncs a step, the idle share and each
    kernel's device time a call beside the mean bound of the same calls
-   (recorded in a replay of that admission and those steps);
+   (recorded in a replay of that admission and those steps); the first
+   ``flash_attention`` call of that admission is relaunched with CUDA
+   events beside SDPA on the same inputs (SDPA has no softcap), and the
+   first ``moe_gmm`` call of the admission and of the steps beside the
+   cuBLAS bf16 yardstick. The lockstep runs ``serve_lm_torch.run``'s loop
+   (``examples/serve_lm_torch.py``) on an engine that drives both;
 13. the recurrent and hybrid models through ``Model.prefill`` /
    ``decode_step`` (phase 12's model freed first), 4 prompts of 1,000
    tokens each (not a multiple of the scan's 64-step chunk), then 16
@@ -219,7 +224,9 @@ Phases, each fatal on failure:
    equal where the margin tests them (every prompt position and every
    step, at least one a prompt). Both paths then run the traffic
    alone, timed (prefill ms, the median decode step, idle share, host
-   syncs), with each kernel's device time a call beside its bound. (b)
+   syncs), with each kernel's device time a call beside its bound, and
+   the first prefill ``flash_attention`` call and ``moe_gmm`` calls
+   relaunched beside SDPA and the cuBLAS yardstick as in phase 12. (b)
    xlstm-350m at full width and depth in bf16 (no kernel serves mLSTM or
    sLSTM: none may launch), timed the same way; then one unit (an mLSTM
    and an sLSTM layer) in float32 on the card and on the CPU with the same
@@ -304,11 +311,33 @@ Phases, each fatal on failure:
    ``flash_attention`` and ``moe_gmm`` launch once a layer, and the
    kernel path is held against the plain path on its expert choices by
    phase 12's rule.
+18. the examples (``examples/tpcc_demo_torch.py``,
+   ``examples/serve_lm_torch.py``), run before 17 so that K3 sees their
+   launches. (a) The demo at its CLI's defaults (16 warehouses, 16
+   threads, 8 rounds) and at ``--shards 4 --rounds 4`` in both locality
+   deployments, each also with the §5.2 kernel flags on, once on the card
+   and once on the CPU from the same seed (the pool loaded on the CPU and
+   moved, the draws from a CPU generator): every statistic and every
+   printed line but the wall time equal; the protocol kernels launch on
+   the card exactly where the flags are on. (b) The demo's one-server run
+   at phases 4-7's deployment (50 warehouses, 60 threads, loaded on the
+   card), 8 rounds with both protocol kernels: each write sub-round must
+   launch each once; it prints the measured abort rate, the mix profile,
+   the Fig. 4 projection and the median round. (c) ``serve_lm_torch.run``
+   on granite-3-8b at full width (8 of 40 layers, bf16 weights from
+   ``--seed``) with the example's traffic (12 prompts of 4-20 tokens, 8
+   slots, ``EngineConfig(8, 16, 128, 128)``, ``max_new`` 24), the kernel
+   engine in lockstep with the plain engine under phase 12's gates;
+   ``flash_attention`` once a layer an admission, ``paged_attention``
+   (group 4: ``paged_part_kernel<__nv_bfloat16, 128, 4>``) once a layer a
+   step; both engines then timed as in phase 12, and the first prefill
+   flash call (beside SDPA) and decode paged call relaunched with CUDA
+   events beside their bounds;
 17. the protocol analyzer's card-only parts (``repro_torch.analysis``),
    last, (c) first and (a) last. (a) K3: every (function, threads,
    dynamic shared memory) the wrappers recorded as they launched in
-   phases 3-16 and (c) (``kernel_audit.launched``), each kernel at least
-   once, against its
+   phases 3-16, 18 and (c) (``kernel_audit.launched``), each kernel at
+   least once, against its
    built function's static shared memory and registers
    (``cuobjdump --dump-resource-usage``):
    static plus dynamic shared memory within the card's
@@ -336,6 +365,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import importlib.util
 import json
 import os
 import re
@@ -360,7 +390,7 @@ from repro_torch.checkpoint import snapshot  # noqa: E402
 from repro_torch.core import gc as gc_ops, store, wal  # noqa: E402
 from repro_torch.core import hashtable as ht, mvcc  # noqa: E402
 from repro_torch.core import header as hdr_ops  # noqa: E402
-from repro_torch.core import si, tsoracle  # noqa: E402
+from repro_torch.core import locality, si, tsoracle  # noqa: E402
 from repro_torch.core.tsoracle import VectorOracle  # noqa: E402
 from repro_torch.core.tsoracle import PartitionedVectorOracle  # noqa: E402
 from repro_torch.core.tsoracle import CompressedVectorOracle  # noqa: E402
@@ -398,6 +428,19 @@ from repro_torch.train import trainstep  # noqa: E402
 from repro_torch.analysis import graph_audit  # noqa: E402
 from repro_torch.analysis import kernel_audit  # noqa: E402
 from repro_torch.analysis import sanitize  # noqa: E402
+
+
+def example(name):
+    """``examples/<name>.py`` as a module."""
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+serve_lm_torch = example("serve_lm_torch")
+tpcc_demo = example("tpcc_demo_torch")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the FP32 rate
 # outside the tensor cores, taken as the rate of 32-bit integer work
@@ -2806,12 +2849,10 @@ def serve_prompts(seed, vocab):
     return prompts
 
 
-def waves(prompts):
-    """``(request ids, prompts)`` of each admission, ``max_seqs`` at a time
-    (``examples/serve_lm.py``)."""
-    n = SERVE_ECFG.max_seqs
-    return [(list(range(i, min(i + n, len(prompts)))), prompts[i:i + n])
-            for i in range(0, len(prompts), n)]
+def waves(prompts, n):
+    """The prompts of each admission, ``n`` at a time
+    (``examples/serve_lm_torch.py``)."""
+    return [prompts[i:i + n] for i in range(0, len(prompts), n)]
 
 
 class ServeShadow:
@@ -3057,7 +3098,7 @@ def serve_int_state(st):
             st.table.kv_len, st.table.active, st.done, st.epoch)
 
 
-def check_lockstep_state(ks, ps, res, what, slots=()):
+def check_lockstep_state(ks, ps, res, what, page_size, slots=()):
     """The integer state bit for bit; the KV pools at every written
     position of the ``slots``: the first layer's bit for bit (its K/V
     come from the embeddings through the same operations on both paths),
@@ -3070,7 +3111,7 @@ def check_lockstep_state(ks, ps, res, what, slots=()):
     t = ps.table
     kv_len = t.kv_len.cpu().numpy()
     pt = t.page_table.cpu().numpy()
-    ps_ = SERVE_ECFG.page_size
+    ps_ = page_size
     pages, offs = [], []
     for s in slots:
         pos = np.arange(kv_len[s])
@@ -3140,124 +3181,161 @@ def prompt_margins(cfg, model, shadow, lens, reqs, res, what):
                         list(range(m)), [r] * m, res, what)
 
 
-def contract_holds(table):
-    """Host bool [B]: every page below ``ceil((kv_len + 1) / page)`` is
-    mapped, the paged kernel's contract (no window narrows it here)."""
+def contract_holds(table, page_size):
+    """Host bool [B]: every page below ``ceil((kv_len + 1) / page_size)``
+    is mapped, the paged kernel's contract (no window narrows it here)."""
     pt = table.page_table
-    need = -(-(table.kv_len.long() + 1) // SERVE_ECFG.page_size)
+    need = -(-(table.kv_len.long() + 1) // page_size)
     col = torch.arange(pt.shape[1], device=pt.device)[None]
     return ((pt >= 0) | (col >= need[:, None])).all(dim=1).cpu().numpy()
 
 
-def serve_lockstep(cfg, model, prompts):
-    """Gates 1-4: the kernel engine and the plain engine in lockstep, the
-    plain engine's tokens and ``done`` copied into the kernel engine after
-    every admission and step, its MoE layers on the kernel engine's
-    expert choices (:class:`ServeShadow`); every row of logits and every
-    written K/V position within ``SERVE_RRMS``; the plain router's own
-    other choices bounded (:func:`dispatch_firsts`); each kernel's first
-    and last call of every admission and step against its plain version;
-    the plain sub-batch's lanes against the contract."""
-    ke = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=True)
-    pe = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=False)
-    ks, ps = ke.init_state(), pe.init_state()
+class ServeLockstep:
+    """An engine for ``serve_lm_torch.run``: gates 1-4 on the kernel
+    engine and the plain engine in lockstep. The plain engine's tokens and
+    ``done`` are copied into the kernel engine after every admission and
+    step, and its MoE layers take the kernel engine's expert choices
+    (:class:`ServeShadow`); every row of logits and every written K/V
+    position within ``SERVE_RRMS``; the plain router's own other choices
+    bounded (:func:`dispatch_firsts`); each kernel's first and last call of
+    every admission and step against its plain version; the plain
+    sub-batch's lanes against the contract. ``run`` holds the kernel
+    engine's state; this keeps the plain engine's."""
+
+    def __init__(self, cfg, model, ecfg, shadow, res):
+        self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        self.shadow, self.res = shadow, res
+        dev = model.embed.device
+        self.ke = serve_engine.Engine(cfg, model, ecfg, kernels=True,
+                                      device=dev)
+        self.pe = serve_engine.Engine(cfg, model, ecfg, kernels=False,
+                                      device=dev)
+        self.ps, self.req_of = None, {}
+        self.wave = self.step_no = self.n_req = 0
+
+    def init_state(self):
+        self.ps = self.pe.init_state()
+        return self.ke.init_state()
+
+    def _force(self, ks):
+        return ks._replace(tokens=self.ps.tokens.clone(),
+                           done=self.ps.done.clone())
+
+    def admit(self, ks, wave):
+        cfg, shadow, res = self.cfg, self.shadow, self.res
+        L, ps_ = cfg.n_layers, self.ecfg.page_size
+        self.wave += 1
+        self.step_no = 0
+        reqs = list(range(self.n_req, self.n_req + len(wave)))
+        self.n_req += len(wave)
+        shadow.step("k")
+        ks, lk, sid = self.ke.admit_logits(ks, wave)
+        shadow.step("p")
+        ps, lp, _ = self.pe.admit_logits(self.ps, wave)
+        shadow.tag = None
+        what = f"{cfg.name} wave {self.wave} admission"
+        slots = sid.tolist()
+        lens = [len(p) for p in wave]
+        if cfg.n_experts:
+            S = shadow.routes["p"][0][1].shape[0] // len(slots)
+            held = np.arange(S)[None] < np.array(lens)[:, None]
+            first = dispatch_firsts(cfg, shadow, cfg.capacity_factor,
+                                    len(slots), held, SERVE_DIVERTED_ADMIT,
+                                    res, what)
+            res["diverged_tokens"] += int((first[held] < L).sum())
+        check_serve_calls(shadow, res, what)
+        prompt_margins(cfg, self.model, shadow, lens, reqs, res, what)
+        rrms_gate(lk, lp, list(range(len(slots))), res, what,
+                  SERVE_RRMS["logits"])
+        self.ps = self.pe.sample_first(ps, lp, sid)
+        ks = self._force(self.ke.sample_first(ks, lk, sid))
+        check_lockstep_state(ks, self.ps, res, what, ps_, slots)
+        res["admits"] += 1
+        self.req_of = dict(zip(slots, reqs))
+        return ks
+
+    def decode_step(self, ks):
+        cfg, shadow, res = self.cfg, self.shadow, self.res
+        L, ps_ = cfg.n_layers, self.ecfg.page_size
+        self.step_no += 1
+        what = f"{cfg.name} wave {self.wave} step {self.step_no}"
+        shadow.step("k")
+        ks, lk = self.ke.decode_logits(ks)
+        shadow.step("p")
+        ps, lp = self.pe.decode_logits(self.ps)
+        shadow.tag = None
+        holds = contract_holds(ps.table, ps_)
+        for win, (good, bad) in self.ke.last_split.items():
+            check(list(good) == list(holds.nonzero()[0]),
+                  f"{what}: the engine's kernel lanes {list(good)} "
+                  f"(window {win}) are not the contract's "
+                  f"{list(holds.nonzero()[0])}")
+        res["paged_steps"] += bool(holds.any())
+        bad = (~holds).nonzero()[0]
+        if len(bad):
+            # the first layer's inputs are the same in both engines: the
+            # plain sub-batch must give the plain engine's rows there
+            ob = shadow.first_plain["k"]
+            op = shadow.first_plain["p"][torch.as_tensor(bad,
+                                                         device=ob.device)]
+            tol = tolerance.LM_TOL["bfloat16"]
+            err, _, ok = held_to(ob, op, tol, tol)
+            check(ok, f"{what}: the plain sub-batch differs from the plain "
+                      f"engine (max abs {err})")
+            res["sub_batch_err"] = max(res["sub_batch_err"], err)
+            res["plain_lanes"] += len(bad)
+            res["mixed_steps"] += bool(holds.any())
+        live = (ps.table.active & ~ps.done).cpu().numpy()
+        rows = live.nonzero()[0].tolist()
+        if cfg.n_experts:
+            first = dispatch_firsts(
+                cfg, shadow, max(2.0, cfg.capacity_factor), len(live),
+                live[:, None], 1.0, res, what, where="step")[:, 0]
+            res["diverged_tokens"] += int(((first < L) & live).sum())
+        check_serve_calls(shadow, res, what)
+        margin_gate(lk, lp, rows, [self.req_of[r] for r in rows], res, what)
+        rrms_gate(lk, lp, rows, res, what, SERVE_RRMS["logits"])
+        self.ps = self.pe.sample(ps, lp)
+        ks = self._force(self.ke.sample(ks, lk))
+        check_lockstep_state(ks, self.ps, res, what, ps_, rows)
+        res["steps"] += 1
+        return ks
+
+    def release_finished(self, ks):
+        """``run`` forced the kernel engine's stragglers done; the plain
+        engine's are forced the same way, and both release."""
+        ps = self.ps._replace(done=self.ps.done | self.ps.table.active)
+        ks = self.ke.release_finished(ks)
+        self.ps = self.pe.release_finished(ps)
+        check_lockstep_state(ks, self.ps, self.res, f"{self.cfg.name} wave "
+                             f"{self.wave} release", self.ecfg.page_size)
+        return ks
+
+
+def serve_lockstep(cfg, model, prompts, ecfg=SERVE_ECFG,
+                   max_new=SERVE_MAX_NEW):
+    """``serve_lm_torch.run``'s loop over ``prompts`` (admit a wave of
+    ``ecfg.max_seqs``, up to ``max_new - 1`` steps, release) on a
+    :class:`ServeLockstep`; its gates' readings, the kernels' launches,
+    and ``run``'s wave lines and count of decoded tokens."""
     res = dict(admits=0, steps=0, paged_steps=0, rrms=0.0, rrms_at="",
                pool_err=0.0, pool_rrms=0.0, pool_out=0.0, tested={},
                calls={}, mixed_steps=0, plain_lanes=0, sub_batch_err=0.0,
                rows=0, positions=0, diverged_tokens=0, tie=0.0, tie_n=0,
                edge=-1, edge_n=0, share={}, gaps=0, gaps_under=0)
-    L = cfg.n_layers
-    force = lambda k, p: k._replace(tokens=p.tokens.clone(),  # noqa: E731
-                                    done=p.done.clone())
     reset_launch_counts()
     with ServeShadow() as shadow:
-        for w, (reqs, wave) in enumerate(waves(prompts)):
-            shadow.step("k")
-            ks, lk, sid = ke.admit_logits(ks, wave)
-            shadow.step("p")
-            ps, lp, _ = pe.admit_logits(ps, wave)
-            shadow.tag = None
-            what = f"{cfg.name} wave {w + 1} admission"
-            slots = sid.tolist()
-            lens = [len(p) for p in wave]
-            if cfg.n_experts:
-                S = shadow.routes["p"][0][1].shape[0] // len(slots)
-                held = np.arange(S)[None] < np.array(lens)[:, None]
-                first = dispatch_firsts(cfg, shadow, cfg.capacity_factor,
-                                        len(slots), held,
-                                        SERVE_DIVERTED_ADMIT, res, what)
-                res["diverged_tokens"] += int((first[held] < L).sum())
-            check_serve_calls(shadow, res, what)
-            prompt_margins(cfg, model, shadow, lens, reqs, res, what)
-            rrms_gate(lk, lp, list(range(len(slots))), res, what,
-                      SERVE_RRMS["logits"])
-            ps = pe.sample_first(ps, lp, sid)
-            ks = force(ke.sample_first(ks, lk, sid), ps)
-            check_lockstep_state(ks, ps, res, what, slots)
-            res["admits"] += 1
-            req_of = dict(zip(slots, reqs))
-            for i in range(SERVE_MAX_NEW - 1):
-                if bool((ps.done | ~ps.table.active).all()):
-                    break
-                what = f"{cfg.name} wave {w + 1} step {i + 1}"
-                shadow.step("k")
-                ks, lk = ke.decode_logits(ks)
-                shadow.step("p")
-                ps, lp = pe.decode_logits(ps)
-                shadow.tag = None
-                holds = contract_holds(ps.table)
-                for win, (good, bad) in ke.last_split.items():
-                    check(list(good) == list(holds.nonzero()[0]),
-                          f"{what}: the engine's kernel lanes {list(good)} "
-                          f"(window {win}) are not the contract's "
-                          f"{list(holds.nonzero()[0])}")
-                res["paged_steps"] += bool(holds.any())
-                bad = (~holds).nonzero()[0]
-                if len(bad):
-                    # the first layer's inputs are the same in both
-                    # engines: the plain sub-batch must give the plain
-                    # engine's rows there
-                    ob = shadow.first_plain["k"]
-                    op = shadow.first_plain["p"][torch.as_tensor(
-                        bad, device=ob.device)]
-                    tol = tolerance.LM_TOL["bfloat16"]
-                    err, _, ok = held_to(ob, op, tol, tol)
-                    check(ok, f"{what}: the plain sub-batch differs from "
-                              f"the plain engine (max abs {err})")
-                    res["sub_batch_err"] = max(res["sub_batch_err"], err)
-                    res["plain_lanes"] += len(bad)
-                    res["mixed_steps"] += bool(holds.any())
-                live = (ps.table.active & ~ps.done).cpu().numpy()
-                rows = live.nonzero()[0].tolist()
-                if cfg.n_experts:
-                    first = dispatch_firsts(
-                        cfg, shadow, max(2.0, cfg.capacity_factor),
-                        len(live), live[:, None], 1.0, res, what,
-                        where="step")[:, 0]
-                    res["diverged_tokens"] += int(((first < L) & live).sum())
-                check_serve_calls(shadow, res, what)
-                margin_gate(lk, lp, rows, [req_of[r] for r in rows], res,
-                            what)
-                rrms_gate(lk, lp, rows, res, what, SERVE_RRMS["logits"])
-                ks, ps = ke.sample(ks, lk), pe.sample(ps, lp)
-                ks = force(ks, ps)
-                check_lockstep_state(ks, ps, res, what, rows)
-                res["steps"] += 1
-            # stragglers are forced done at the wave's budget and released
-            ks = ke.release_finished(ks._replace(done=ks.done
-                                                 | ks.table.active))
-            ps = pe.release_finished(ps._replace(done=ps.done
-                                                 | ps.table.active))
-            check_lockstep_state(ks, ps, res, f"{cfg.name} wave {w + 1} "
-                                              f"release")
+        res["lines"], res["tokens"], _ = serve_lm_torch.run(
+            ServeLockstep(cfg, model, ecfg, shadow, res), prompts, max_new)
     res["launches"] = {n: launch_counts()[n] for n in SERVE_KERNELS}
     return res
 
 
-def call_bounds(fn, names=SERVE_KERNELS):
+def call_bounds(fn, names=SERVE_KERNELS, firsts=None):
     """Run ``fn()`` with the wrappers of the kernels ``names`` recording
     the bound of every call's work; returns ``{name: [(bound ms, bound
-    by), ...]}``."""
+    by), ...]}``. ``firsts`` (a dict) takes each kernel's first call,
+    ``(args, kw, out)``."""
     out = {n: [] for n in names}
     mods = {n: LM_OPS[n] for n in names}
     orig = {n: getattr(m, n) for n, m in mods.items()}
@@ -3265,7 +3343,10 @@ def call_bounds(fn, names=SERVE_KERNELS):
     def wrap(name):
         def call(*args, **kw):
             out[name].append(serve_bound(*serve_call_work(name, args, kw)))
-            return orig[name](*args, **kw)
+            res = orig[name](*args, **kw)
+            if firsts is not None:
+                firsts.setdefault(name, (args, kw, res))
+            return res
         return call
     try:
         for n, m in mods.items():
@@ -3277,22 +3358,24 @@ def call_bounds(fn, names=SERVE_KERNELS):
     return out
 
 
-def serve_timed(cfg, model, prompts, kernels):
+def serve_timed(cfg, model, prompts, kernels, ecfg=SERVE_ECFG,
+                max_new=SERVE_MAX_NEW):
     """The traffic through one engine: prefill ms of each wave, each
     decode step's ms (host clock, synchronised), the tokens decoded; then
     wave 1's admission and ``SERVE_PROFILE_STEPS`` decode steps again from
     a fresh state under the profiler, and once more (the engine is
-    deterministic) with each kernel call's bound recorded."""
-    eng = serve_engine.Engine(cfg, model, SERVE_ECFG, kernels=kernels)
+    deterministic) with each kernel call's bound and each kernel's first
+    call of the admission and of the steps recorded (``firsts``)."""
+    eng = serve_engine.Engine(cfg, model, ecfg, kernels=kernels)
     st = eng.init_state()
     prefill, steps, n_tokens = [], [], 0
-    for _, wave in waves(prompts):
+    for wave in waves(prompts, ecfg.max_seqs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = eng.admit(st, wave)
         torch.cuda.synchronize()
         prefill.append((time.perf_counter() - t0) * 1e3)
-        for _ in range(SERVE_MAX_NEW - 1):
+        for _ in range(max_new - 1):
             if bool((st.done | ~st.table.active).all()):
                 break
             t0 = time.perf_counter()
@@ -3304,7 +3387,7 @@ def serve_timed(cfg, model, prompts, kernels):
                                               | st.table.active))
     del st
     box = [eng.init_state()]
-    wave = waves(prompts)[0][1]
+    wave = waves(prompts, ecfg.max_seqs)[0]
 
     def admit():
         box[0] = eng.admit(box[0], wave)
@@ -3319,14 +3402,16 @@ def serve_timed(cfg, model, prompts, kernels):
     dec = profiled(decode)
     dec_calls = launch_counts()
     box[0] = eng.init_state()
-    admit_bounds = call_bounds(admit)
-    decode_bounds = call_bounds(decode)
+    firsts = {"prefill": {}, "decode": {}}
+    admit_bounds = call_bounds(admit, firsts=firsts["prefill"])
+    decode_bounds = call_bounds(decode, firsts=firsts["decode"])
     del box
     torch.cuda.empty_cache()
     return dict(prefill_ms=prefill, step_ms=steps, tokens=n_tokens,
                 prefill_profile=admit_prof, prefill_calls=admit_calls,
                 prefill_bounds=admit_bounds, decode_profile=dec,
-                decode_calls=dec_calls, decode_bounds=decode_bounds)
+                decode_calls=dec_calls, decode_bounds=decode_bounds,
+                firsts=firsts)
 
 
 def per_call_us(profile, calls, name):
@@ -3367,6 +3452,80 @@ def record_kernel_times(label, t, names, recs, phase8, smi):
                   + (f"; phase 8 {p8['case']}: {p8['ms']:.4f} ms, bound "
                      f"{p8['bound_ms']:.4f} ms" if p8 else "")
                   + f" | {smi}", flush=True)
+
+
+RELAUNCH_REPS = 20    # CUDA-event launches timed per relaunched path call
+
+
+def relaunch_ms(launch, reps=RELAUNCH_REPS):
+    """Mean ms of ``launch()`` with CUDA events, the GPU held while the
+    calls queue, after a discarded warm-up round."""
+    launch()
+    time_events(launch, reps, hold=True)
+    return time_events(launch, reps, hold=True)
+
+
+def moe_call_times(call, smi, label):
+    """A path's ``moe_gmm`` call ``(args, kw, out)`` relaunched, beside its
+    bound and the cuBLAS bf16 yardstick (:func:`moe_yardstick`) on the
+    same inputs."""
+    (x, wg, wi, wo), kw, _ = call
+    ms = relaunch_ms(moe_ops.prepare(x, wg, wi, wo, **kw))
+    lib_ms = relaunch_ms(moe_yardstick(x, wg, wi, wo,
+                                       kw.get("activation", "silu")))
+    bound_ms, bound_by = serve_bound(*serve_call_work("moe_gmm", call[0],
+                                                      kw))
+    print(f"{label}: x {tuple(x.shape)}, F {wi.shape[2]}: {ms:.4f} ms a "
+          f"call (CUDA events, GPU held, {RELAUNCH_REPS} launches), bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % of "
+          f"it; cuBLAS bf16 yardstick {lib_ms:.4f} ms | {smi}", flush=True)
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                yardstick_ms=lib_ms, shape=dict(x=list(x.shape),
+                                                F=wi.shape[2]))
+
+
+def paged_call_times(call, smi, label):
+    """A path's ``paged_attention`` call relaunched, beside its bound and
+    its plain version (no PyTorch call walks a page table)."""
+    args, kw, _ = call
+    q, k_pool = args[:2]
+    ms = relaunch_ms(paged_ops.prepare(*args, **kw))
+    plain_ms = time_events(lambda: paged_ref.paged_attention_ref(*args,
+                                                                 **kw), 2)
+    bound_ms, bound_by = serve_bound(*serve_call_work("paged_attention",
+                                                      args, kw))
+    g = q.shape[1] // k_pool.shape[2]
+    print(f"{label}: q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, "
+          f"page table {tuple(args[3].shape)}, g = {g}: {ms:.4f} ms a call "
+          f"(CUDA events, GPU held, {RELAUNCH_REPS} launches), bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % of "
+          f"it; plain {plain_ms:.4f} ms | {smi}", flush=True)
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                plain_ms=plain_ms, shape=dict(q=list(q.shape),
+                                              pool=list(k_pool.shape), g=g))
+
+
+def path_call_times(label, firsts, smi):
+    """The first prefill ``flash_attention`` call of a path's profiled run
+    beside SDPA (:func:`flash_kind_times`; SDPA has no softcap), the first
+    decode ``paged_attention`` call, and the first prefill and decode
+    ``moe_gmm`` calls beside the cuBLAS yardstick, each relaunched with
+    CUDA events; returns ``{kernel: {where: record}}``."""
+    out = {}
+    flash = firsts["prefill"].get("flash_attention")
+    if flash is not None:
+        out["flash_attention"] = flash_kind_times(
+            {"flash_attention (prefill)": flash}, smi, label)
+    paged = firsts["decode"].get("paged_attention")
+    if paged is not None:
+        out["paged_attention"] = {"decode": paged_call_times(
+            paged, smi, f"{label}: paged_attention (decode)")}
+    for where in ("prefill", "decode"):
+        call = firsts[where].get("moe_gmm")
+        if call is not None:
+            out.setdefault("moe_gmm", {})[where] = moe_call_times(
+                call, smi, f"{label}: moe_gmm ({where})")
+    return out
 
 
 @torch.no_grad()
@@ -3464,6 +3623,9 @@ def run_serve_phase(args, dev, smi, lm_records):
             record_kernel_times(f"serve {arch}", t, SERVE_KERNELS,
                                 {n: out[n][arch] for n in SERVE_KERNELS},
                                 phase8, smi)
+            for name, rec in path_call_times(f"serve {arch}", t["firsts"],
+                                             smi).items():
+                out[name][arch]["events"] = rec
         print(f"serve {arch}: max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase "
               f"{time.perf_counter() - t0:.2f} s | {smi}", flush=True)
@@ -3658,7 +3820,7 @@ def model_timed(cfg, model, batch, kernels, names=(),
     step's ms (host clock, synchronised); then a prefill (unless
     ``profile_prefill`` is False) and ``RECURRENT_PROFILE_STEPS`` steps
     under the profiler, and once more with the bound of each call of the
-    kernels ``names`` recorded."""
+    kernels ``names`` and each one's first call (``firsts``) recorded."""
     m = api.build(cfg)
     max_len = prompt_len(cfg, batch) + RECURRENT_STEPS + 1
     prefill, steps = [], []
@@ -3695,14 +3857,15 @@ def model_timed(cfg, model, batch, kernels, names=(),
     reset_launch_counts()
     dec_prof = profiled(dec)
     dec_calls = launch_counts()
-    pre_bounds = call_bounds(pre, names) if names else {}
-    dec_bounds = call_bounds(dec, names) if names else {}
+    firsts = {"prefill": {}, "decode": {}}
+    pre_bounds = call_bounds(pre, names, firsts["prefill"]) if names else {}
+    dec_bounds = call_bounds(dec, names, firsts["decode"]) if names else {}
     del box, cache
     torch.cuda.empty_cache()
     return dict(prefill_ms=prefill, step_ms=steps, prefill_profile=pre_prof,
                 prefill_calls=pre_calls, prefill_bounds=pre_bounds,
                 decode_profile=dec_prof, decode_calls=dec_calls,
-                decode_bounds=dec_bounds)
+                decode_bounds=dec_bounds, firsts=firsts)
 
 
 def print_model_times(label, t, smi):
@@ -3795,6 +3958,9 @@ def run_jamba(args, dev, smi, phase8):
                     for n in RECURRENT_KERNELS}
             record_kernel_times(cfg.name, t, RECURRENT_KERNELS, recs, phase8,
                                 smi)
+            for name, rec in path_call_times(cfg.name, t["firsts"],
+                                             smi).items():
+                recs[name]["events"] = rec
     print(f"{cfg.name}: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB | {smi}",
           flush=True)
@@ -3921,7 +4087,6 @@ ENCDEC_PROMPT = {"whisper-medium": 4, "paligemma-3b": 32}
 # RMS differences, about twice the larger reading of seeds 0 and 1 on the
 # card (scripts/lockstep_seeds.py --phase 14 0 1, PERF.md §6)
 ENCDEC_RRMS = {"logits": 0.045, "attn": 0.045, "enc_kv": 0.06}
-ENCDEC_REPS = 20      # CUDA-event launches timed per kind of flash call
 
 
 class EncdecShadow(ServeShadow):
@@ -4079,10 +4244,7 @@ def flash_kind_times(first_calls, smi, label):
     for key, (args, kw, ker_out) in first_calls.items():
         q, k, v = args
         causal = kw.get("causal", True)
-        launch = flash_ops.prepare(q, k, v, **kw)
-        launch()
-        time_events(launch, ENCDEC_REPS, hold=True)   # warm-up, not kept
-        ms = time_events(launch, ENCDEC_REPS, hold=True)
+        ms = relaunch_ms(flash_ops.prepare(q, k, v, **kw))
         plain_ms = time_events(lambda: flash_ref.flash_attention_ref(
             q, k, v, **kw), 2)
         qt, kt, vt = (t.transpose(1, 2) for t in args)
@@ -4092,14 +4254,13 @@ def flash_kind_times(first_calls, smi, label):
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
         lib_err = float((lib().transpose(1, 2).float()
                          - ker_out.float()).abs().max())
-        lib()
-        lib_ms = time_events(lib, ENCDEC_REPS, hold=True)
+        lib_ms = relaunch_ms(lib)
         n_bytes, op_s = serve_call_work("flash_attention", args, kw)
         bound_ms, bound_by = serve_bound(n_bytes, op_s)
         B, Sq, Hq, D = q.shape
         print(f"{label}: {key}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
               f"causal {causal}: {ms:.4f} ms a call (CUDA events, GPU held, "
-              f"{ENCDEC_REPS} launches), bound {bound_ms:.4f} ms "
+              f"{RELAUNCH_REPS} launches), bound {bound_ms:.4f} ms "
               f"({bound_by}; {flash_pairs(Sq, k.shape[1], causal, None)} "
               f"visible pairs a head, {n_bytes / 1e6:.3f} MB), "
               f"{100 * bound_ms / ms:.1f} % of it; SDPA {lib_ms:.4f} ms "
@@ -4565,19 +4726,9 @@ def run_train_unit(args, dev, smi, limit=TRAIN_UNIT_RRMS, hold=None,
     return worst, out
 
 
-def train_example():
-    """``examples/train_lm_torch.py`` as a module."""
-    import importlib.util
-    path = Path(__file__).resolve().parent / "examples" / "train_lm_torch.py"
-    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def run_train_recovery(dev, smi):
     """Phase 15 (c): the example's failure and recovery, exact."""
-    ex = train_example()
+    ex = example("train_lm_torch")
     lines = []
     t0 = time.perf_counter()
     diff, l_fail, l_ref = ex.run(RECOVERY["steps"], RECOVERY["fail_at"],
@@ -4925,10 +5076,250 @@ def run_launch_phase(args, dev, smi, train, phase8_moe):
     return dict(sharded, sharded_prefill_launches=launches["moe_gmm"])
 
 
+# ----------------------------------------- the examples (phase 18) ----
+# (a): the demo's card run against its CPU run, at the CLI's defaults and
+# at --shards 4 --rounds 4, each also with the §5.2 kernel flags on (the
+# card launches the protocol kernels, the CPU runs their plain versions)
+DEMO_SHARDS = ["--shards", "4", "--rounds", "4"]
+DEMO_KERNELS = dict(key_addressed=True, fused_commit=True,
+                    batched_probe=True)
+# (b): phases 4-7's one memory server (SLICE), the demo's 8 rounds
+DEMO_PAPER_ROUNDS = 8
+# (c): granite-3-8b at full width (d 4,096, 32 heads over 8 KV heads, head
+# dim 128, bf16), 8 of its 40 layers as phase 15 trains, the example's
+# traffic: 12 prompts of 4-20 tokens, 8 slots, 24 new tokens
+EXAMPLE_ARCH, EXAMPLE_LAYERS = "granite-3-8b", 8
+EXAMPLE_REQUESTS, EXAMPLE_MAX_NEW, EXAMPLE_SLOTS = 12, 24, 8
+PAGED_G4 = "paged_part_kernel<__nv_bfloat16, 128, 4>"
+
+
+def without_wall_time(lines):
+    return [re.sub(r" in [0-9.]+s$", "", ln) for ln in lines]
+
+
+def demo_card_and_cpu(run, what, dev):
+    """``run(device)`` on the card (its launches counted) and on the CPU:
+    every statistic and every printed line but the wall time equal.
+    Returns the card's lines and launches."""
+    reset_launch_counts()
+    card, lines = run(dev)
+    torch.cuda.synchronize()
+    launches = launch_counts(decide=True)
+    cpu, cpu_lines = run("cpu")
+    same_stats(card, cpu, what)
+    check(without_wall_time(lines) == without_wall_time(cpu_lines),
+          f"{what}: the printed lines differ: {lines} against {cpu_lines}")
+    return lines, launches
+
+
+def run_demo_card_and_cpu(args, dev, smi):
+    """Phase 18 (a)."""
+    t0 = time.perf_counter()
+    seed = ["--seed", str(args.seed)]
+    out = {}
+    for flags, on in (({}, "plain"), (DEMO_KERNELS, "kernels")):
+        a = tpcc_demo.parse_args(seed)
+        cfg = dataclasses.replace(tpcc_demo.single_config(a), **flags)
+
+        def single(d, cfg=cfg, a=a):
+            oracle = VectorOracle(cfg.n_threads)
+            lay, st = tpcc_demo.load(cfg, oracle, a.seed, d)
+            return tpcc_demo.run_single(
+                cfg, lay, st, oracle, tpcc_demo.draws(cfg, a.seed + 1, d),
+                a.rounds, d)
+        what = f"demo, one server, {on}"
+        lines, n = demo_card_and_cpu(single, what, dev)
+        out[what] = n
+        print(f"{what}: card and CPU identical; launches {n}")
+        for ln in lines:
+            print(f"  {ln}")
+        a = tpcc_demo.parse_args(seed + DEMO_SHARDS)
+        for mode, layout in tpcc_demo.MODES:
+            cfg = dataclasses.replace(tpcc_demo.sharded_config(a, layout),
+                                      **flags)
+            home = locality.thread_homes(cfg.n_threads, cfg.n_warehouses)
+
+            def sharded(d, cfg=cfg, a=a, mode=mode, home=home):
+                lay, st = tpcc_demo.load(cfg, PartitionedVectorOracle(
+                    cfg.n_threads, n_parts=a.shards), a.seed, d)
+                return tpcc_demo.run_sharded(
+                    cfg, lay, st, a.shards,
+                    tpcc_demo.draws(cfg, a.seed + 1, d, home), a.rounds,
+                    mode, d)
+            what = f"demo, {a.shards} servers, {mode}, {on}"
+            lines, n = demo_card_and_cpu(sharded, what, dev)
+            out[what] = n
+            print(f"{what}: card and CPU identical (local fraction "
+                  f"included); launches {n}")
+            for ln in lines:
+                print(f"  {ln}")
+    for what, n in out.items():
+        kernels = what.endswith("kernels")
+        check((n["batched_probe"] > 0 and n["fused_commit"] > 0) == kernels,
+              f"{what}: protocol kernel launches {n}")
+    print(f"demo, card against CPU: {time.perf_counter() - t0:.2f} s | "
+          f"{smi}", flush=True)
+    return out
+
+
+def run_demo_paper(args, dev, smi):
+    """Phase 18 (b): the demo's one-server run at NAM-DB §7's deployment,
+    on a pool loaded on the card; every write sub-round must launch each
+    protocol kernel once. Returns the launches."""
+    cfg = SLICE
+    oracle = VectorOracle(cfg.n_threads)
+    t0 = time.perf_counter()
+    lay, st = tpcc.init_tpcc(
+        cfg, oracle, torch.Generator(device=dev).manual_seed(args.seed + 18),
+        device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    # the demo draws on the host's CPU (its runs agree across devices);
+    # drawn before the run, so that a round's time is the round's alone
+    stream = tpcc_demo.draws(cfg, args.seed + 19, dev)
+    t0 = time.perf_counter()
+    rounds_in = [stream(r) for r in range(DEMO_PAPER_ROUNDS)]
+    t_draw = time.perf_counter() - t0
+    stamps = []
+
+    def draw(r):
+        stamps.append(time.perf_counter())
+        return rounds_in[r]
+    reset_launch_counts()
+    with SubRounds() as sub:
+        stats, lines = tpcc_demo.run_single(cfg, lay, st, oracle, draw,
+                                            DEMO_PAPER_ROUNDS, dev)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    launches = launch_counts()
+    check(launches["batched_probe"] > 0 and launches["fused_commit"] > 0,
+          f"demo at {cfg.n_warehouses} warehouses: a protocol kernel did "
+          f"not launch: {launches}")
+    for n in ("neworder_round", "payment_round", "delivery_round"):
+        per_call = sub.launches(n)
+        check(all(d["batched_probe"] == 1 and d["fused_commit"] == 1
+                  for d in per_call),
+              f"demo at {cfg.n_warehouses} warehouses: {n} did not launch "
+              f"each kernel once in every sub-round: {per_call}")
+    rounds = [b - a for a, b in zip(stamps, stamps[1:])]
+    print(f"demo at NAM-DB §7's deployment ({cfg.n_warehouses} warehouses, "
+          f"{cfg.n_threads} threads, R={lay.catalog.total_records} records, "
+          f"loaded on the card in {t_load:.2f} s), {DEMO_PAPER_ROUNDS} "
+          f"rounds drawn on the host in {t_draw:.2f} s, launches "
+          f"{launches}, every write sub-round through both kernels "
+          f"({len(sub.log)} sub-rounds):")
+    for ln in lines:
+        print(f"  {ln}")
+    print_round_times("demo, one server, kernels", rounds,
+                      stats.total_commits, "transactions", f" | {smi}")
+    del st, lay
+    torch.cuda.empty_cache()
+    return launches
+
+
+@torch.no_grad()
+def run_serve_example(args, dev, smi, phase8):
+    """Phase 18 (c): ``serve_lm_torch.run`` on granite-3-8b at full width,
+    the kernel engine in lockstep with the plain engine (phase 12's
+    gates); then both timed, and the first prefill ``flash_attention``
+    call and the first decode ``paged_attention`` call relaunched with
+    CUDA events."""
+    t0 = time.perf_counter()
+    full = get_arch(EXAMPLE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=EXAMPLE_LAYERS)
+    ecfg = serve_lm_torch.engine_config(EXAMPLE_SLOTS)
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed + 18), dev)
+    prompts = make_prompts(args.seed + 19, EXAMPLE_REQUESTS, cfg.vocab,
+                           min_len=4, max_len=20)
+    n_weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"serve example {cfg.name}: {EXAMPLE_LAYERS} of {full.n_layers} "
+          f"layers (d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads, head dim {cfg.d_head}), weights "
+          f"{n_weights / 1e9:.3f} GB (bf16, random from the seed), prompts "
+          f"{[len(p) for p in prompts]}, {EXAMPLE_SLOTS} slots, max_new "
+          f"{EXAMPLE_MAX_NEW}", flush=True)
+    seen = set(paged_ops.paged_attention.launched)
+    res = serve_lockstep(cfg, model, prompts, ecfg, EXAMPLE_MAX_NEW)
+    want = {"flash_attention": EXAMPLE_LAYERS * res["admits"],
+            "paged_attention": EXAMPLE_LAYERS * res["paged_steps"],
+            "moe_gmm": 0}
+    check(res["launches"] == want, f"serve example: launches "
+                                   f"{res['launches']}, expected {want}")
+    g4 = [p for p in paged_ops.paged_attention.launched
+          if p[0] == PAGED_G4]
+    check(g4, f"serve example: no {PAGED_G4} launch")
+    short = [r for r in range(len(prompts)) if res["tested"].get(r, 0) < 1]
+    check(not short, f"serve example: requests {short} have no position "
+                     f"whose margin tests the greedy token")
+    for ln in res["lines"]:
+        print(f"  {ln}")
+    print(f"serve example lockstep through serve_lm_torch.run: "
+          f"{res['tokens']} tokens decoded, {res['admits']} admissions, "
+          f"{res['steps']} decode steps ({res['paged_steps']} with a kernel "
+          f"lane, {res['plain_lanes']} lane-steps on the plain sub-batch); "
+          f"launches {res['launches']} = expected, {PAGED_G4} at "
+          f"{[p[1:] for p in g4]} (threads, dynamic shared B; new to this "
+          f"process: {bool(set(g4) - seen)}); integer state bit-identical "
+          f"at every step; logits' relative RMS difference max "
+          f"{res['rrms']:.4g} (at {res['rrms_at']}, limit "
+          f"{SERVE_RRMS['logits']}, over {res['rows']} rows); every written "
+          f"K/V position's relative RMS difference at most "
+          f"{res['pool_rrms']:.4g} (limit {SERVE_RRMS['kv']}); greedy "
+          f"tokens equal at {sum(res['tested'].values())} of "
+          f"{res['positions']} positions the margin tests; kernel calls "
+          f"against their plain versions: {res['calls']} | {smi}",
+          flush=True)
+    out = {"flash_attention": dict(launches=res["launches"]
+                                   ["flash_attention"]),
+           "paged_attention": dict(launches=res["launches"]
+                                   ["paged_attention"])}
+    for kernels in (True, False):
+        label = "kernels" if kernels else "plain"
+        t = serve_timed(cfg, model, prompts, kernels, ecfg, EXAMPLE_MAX_NEW)
+        steps = torch.tensor(t["step_ms"], dtype=torch.float64)
+        wall, busy = t["decode_profile"][:2]
+        awall, abusy = t["prefill_profile"][:2]
+        print(f"serve example {cfg.name}, {label}: prefill "
+              f"{[round(x, 3) for x in t['prefill_ms']]} ms per wave; "
+              f"decode step median {steps.median():.3f} ms (min "
+              f"{steps.min():.3f}, max {steps.max():.3f}, {len(steps)} "
+              f"steps); {t['tokens'] / steps.sum() * 1e3:.1f} decoded "
+              f"tokens/s; idle share over {SERVE_PROFILE_STEPS} profiled "
+              f"steps {1 - busy / wall:.4f} (wave 1 admission: "
+              f"{1 - abusy / awall:.4f}) | {smi}", flush=True)
+        for key, t_us, n in t["decode_profile"][2][:6]:
+            print(f"  decode, {label}: {t_us / 1e3 / SERVE_PROFILE_STEPS:8.3f}"
+                  f" ms a step, {n / SERVE_PROFILE_STEPS:6.1f}x  {key[:70]}")
+        if not kernels:
+            continue
+        names = ("flash_attention", "paged_attention")
+        record_kernel_times(f"serve example {cfg.name}", t, names, out,
+                            phase8, smi)
+        for name, rec in path_call_times(f"serve example {cfg.name}",
+                                         t["firsts"], smi).items():
+            out[name]["events"] = rec
+    print(f"serve example: {time.perf_counter() - t0:.2f} s | {smi}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_examples_phase(args, dev, smi, lm_records):
+    """Phase 18: (a) the demo on the card against the CPU, (b) the demo at
+    the paper's deployment, (c) the serve example at full width. Returns
+    ``(demo launches by part, serve records by kernel)``."""
+    phase8 = {r["name"]: r for r in lm_records}
+    demo = run_demo_card_and_cpu(args, dev, smi)
+    demo["demo at the paper's deployment"] = run_demo_paper(args, dev, smi)
+    return demo, run_serve_example(args, dev, smi, phase8)
+
+
 # ------------------------------- the protocol analyzer (phase 17) ----
 def run_k3_part(smi):
     """Phase 17 (a): K3 on the built functions, at every block shape the
-    wrappers launched in this process (phases 3-16 and (c))."""
+    wrappers launched in this process (phases 3-16, 18 and (c))."""
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     points = kernel_audit.launched(COUNTERS)
     unseen = set(_build.KERNELS) - {p.library for p in points}
@@ -5453,6 +5844,20 @@ def main(argv=None):
         launch.pop("sharded_prefill_launches")
     moe_rec["sharded_dispatch"] = launch
     print(f"launch phase: {time.perf_counter() - t0:.2f} s | {smi}")
+
+    # ---- 18. the examples, before 17 so that K3 sees their launches -------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    demo, serve_ex = run_examples_phase(args, dev, smi, lm)
+    for k in kernels:
+        if k["name"] in ("batched_probe", "fused_commit"):
+            k["launches_by_path"]["demo_paper_deployment"] = \
+                demo["demo at the paper's deployment"][k["name"]]
+        elif k["name"] in serve_ex:
+            k["launches_by_path"]["serve_lm_example"] = \
+                serve_ex[k["name"]]["launches"]
+            k["serve"][EXAMPLE_ARCH] = serve_ex[k["name"]]
+    print(f"examples phase: {time.perf_counter() - t0:.2f} s | {smi}")
 
     # ---- 17. the protocol analyzer's card-only parts ----------------------
     t0 = time.perf_counter()

@@ -33,7 +33,7 @@ from repro_torch.core import wal
 from repro_torch.core.tsoracle import VectorOracle
 from repro_torch.db import tpcc
 
-from test_torch_mix import _conv
+from _torch_tpcc_common import _conv
 from test_torch_tpcc import _eq_state
 
 P8 = dict(n_warehouses=4, customers_per_district=8, n_items=64, n_threads=8,

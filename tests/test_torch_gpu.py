@@ -14,6 +14,8 @@ held against the plain version on float32 copies of their inputs at
 ``F32_PLAIN_RTOL`` and ``F32_PLAIN_ATOL_RMS``, the limits that tell their
 split second operand from a single bf16 rounding.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1250,6 +1252,23 @@ def test_paged_kernel_unmapped_page_mid_partition_on_card(dtype):
 
 
 @pytest.mark.gpu
+def test_paged_kernel_granite_decode_shape_on_card():
+    """granite-3-8b's decode call: bf16, head dim 128, 32 query heads over
+    8 KV heads (a group of 4), pages of 16, a few pages a sequence; its
+    launch is the g = 4 instance of launch 1."""
+    dev = _cuda()
+    q, kp, vp, pt, kl = paged_inputs(32, 8, 16, D=128)
+    q, kp, vp = (_f(a, "bfloat16", dev) for a in (q, kp, vp))
+    pt, kl = torch.from_numpy(pt).to(dev), torch.from_numpy(kl).to(dev)
+    out = paged_ops.paged_attention(q, kp, vp, pt, kl, window=None)
+    plain = paged_attention_ref(q, kp, vp, pt, kl, window=None)
+    torch.cuda.synchronize()
+    _close(out, plain, LM_TOL["bfloat16"], "granite decode shape")
+    assert any(fn == "paged_part_kernel<__nv_bfloat16, 128, 4>"
+               for fn, _, _ in paged_ops.paged_attention.launched)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", LM_DTYPES)
 @pytest.mark.parametrize("case", MOE_CASES)
 def test_moe_kernel_matches_plain_on_card(case, dtype):
@@ -2212,3 +2231,48 @@ def test_run_check_sees_a_write_past_a_buffer_and_an_unwritten_one():
                                            lambda a, kw, got: None, counter))
         assert not getattr(res, field), res
         assert sanitize.findings_of(res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_tpcc_demo_on_card_matches_cpu(shards):
+    """``examples/tpcc_demo_torch.py`` at a tiny size with the §5.2
+    kernel flags on: the card's run (through the protocol kernels) and
+    the CPU's (their plain versions) from one seed give every statistic
+    and every printed line but the wall time equal."""
+    from repro_torch.core import locality
+    from _torch_examples_common import _example
+    dev = _cuda()
+    demo = _example("tpcc_demo_torch")
+    flags = dict(key_addressed=True, fused_commit=True, batched_probe=True)
+    args = demo.parse_args(["--rounds", "3", "--threads", "8",
+                            "--warehouses", "8", "--shards", str(shards)])
+    mode, layout = demo.MODES[0]
+
+    def run(d):
+        if shards == 1:
+            cfg = dataclasses.replace(demo.single_config(args), **flags)
+            oracle = VectorOracle(cfg.n_threads)
+            lay, st = demo.load(cfg, oracle, args.seed, d)
+            return demo.run_single(cfg, lay, st, oracle,
+                                   demo.draws(cfg, args.seed + 1, d),
+                                   args.rounds, d)
+        cfg = dataclasses.replace(demo.sharded_config(args, layout), **flags)
+        home = locality.thread_homes(cfg.n_threads, cfg.n_warehouses)
+        lay, st = demo.load(cfg, PartitionedVectorOracle(
+            cfg.n_threads, n_parts=shards), args.seed, d)
+        return demo.run_sharded(cfg, lay, st, shards,
+                                demo.draws(cfg, args.seed + 1, d, home),
+                                args.rounds, mode, d)
+    before = probe_ops.batched_probe.launches, commit_ops.fused_commit.launches
+    card, card_lines = run(dev)
+    torch.cuda.synchronize()
+    assert probe_ops.batched_probe.launches > before[0]
+    assert commit_ops.fused_commit.launches > before[1]
+    cpu, cpu_lines = run("cpu")
+    for f in card._fields:
+        a, b = getattr(card, f), getattr(cpu, f)
+        assert a == b or (a != a and b != b), f
+    strip = lambda ls: [ln.split(" in ")[0] if ln.startswith("ran ")  # noqa
+                        else ln for ln in ls]
+    assert strip(card_lines) == strip(cpu_lines)

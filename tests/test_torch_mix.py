@@ -23,11 +23,11 @@ from repro.core.tsoracle import VectorOracle as JOracle
 from repro.db import tpcc as jtpcc, workload as jworkload
 
 from repro_torch import convert
-from repro_torch._u32 import np_to_i32
 from repro_torch.core import locality
 from repro_torch.core.tsoracle import VectorOracle
 from repro_torch.db import tpcc, workload
 
+from _torch_tpcc_common import _conv, _mixed_draws, _port_state
 from test_torch_tpcc import _eq, _eq_state
 
 FLAGS = dict(key_addressed=True, fused_commit=True, batched_probe=True)
@@ -44,13 +44,6 @@ WRITE_TYPES = {"neworder": ("committed", "snapshot_miss", "o_id"),
 READ_TYPES = ("orderstatus", "stocklevel")
 
 
-def _conv(x):
-    """A reference NamedTuple of arrays (nested) as the port's tensors."""
-    if hasattr(x, "_fields"):
-        return type(x)(*(_conv(y) for y in x))
-    return torch.from_numpy(np_to_i32(np.array(x)))
-
-
 def _aged_start(kw, n_rounds=3):
     """The reference's loaded state after ``n_rounds`` new-order rounds,
     so that districts hold orders to deliver and to report on."""
@@ -61,11 +54,6 @@ def _aged_start(kw, n_rounds=3):
                                        JOracle(jcfg.n_threads),
                                        jax.random.PRNGKey(5), n_rounds)
     return jcfg, cfg, lay, jst
-
-
-def _port_state(jst):
-    return convert.tpcc_state_from_numpy(jax.tree.map(np.asarray, jst),
-                                         "cpu")
 
 
 def _eq_tuple(ref, port, what):
@@ -230,20 +218,6 @@ def _recording(mod, name, log):
     return rec
 
 
-def _mixed_draws(jcfg, seed, n_rounds, home_w, skew):
-    """The reference driver's per-round ``gen_mixed`` draws, converted."""
-    logits = jworkload.zipf_logits(jcfg.n_items, jcfg.skew_alpha)
-    key = jax.random.PRNGKey(seed)
-    draws = []
-    for _ in range(n_rounds):
-        key, sub = jax.random.split(key)
-        draws.append(_conv(jworkload.gen_mixed(
-            sub, jcfg.n_threads, jcfg.n_warehouses, jcfg.n_items,
-            jcfg.customers_per_district, home_w, jcfg.dist_degree, logits,
-            TEST_MIX, skew=skew)))
-    return draws
-
-
 def _same(a, b):
     """Equal, or both NaN (the local fraction of a run that measures no
     locality)."""
@@ -272,7 +246,7 @@ def test_mixed_rounds_match_reference(name, monkeypatch):
     jst, js = jtpcc.run_mixed_rounds(jcfg, lay, jst, JOracle(T),
                                      jax.random.PRNGKey(1), N_ROUNDS,
                                      mix=TEST_MIX, **jkw)
-    draws = _mixed_draws(jcfg, 1, N_ROUNDS, home_w, skew)
+    draws = _mixed_draws(jcfg, 1, N_ROUNDS, home_w, skew, TEST_MIX)
     pst, ps = tpcc.run_mixed_rounds(cfg, tpcc.make_layout(cfg), pst,
                                     VectorOracle(T), lambda r: draws[r],
                                     N_ROUNDS, device="cpu", **pkw)

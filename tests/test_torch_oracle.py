@@ -38,8 +38,9 @@ from repro_torch.db import tpcc, workload
 
 from _si_common import gen_batch, make_compute
 from test_torch_durability import _eq_journal, _eq_stats
+from _torch_tpcc_common import _mixed_draws
 from test_torch_mix import READ_TYPES, ROUND_FNS, TEST_MIX, WRITE_TYPES, \
-    _eq_readonly, _eq_write, _mixed_draws, _recording
+    _eq_readonly, _eq_write, _recording
 from test_torch_tpcc import _draws as _neworder_draws, _eq, _eq_state
 
 U32 = np.uint32
@@ -365,7 +366,8 @@ def _ref_mixed(name, n_rounds=MIX_ROUNDS, capacity=None, durable=False):
             for fn, f in orig.items():
                 setattr(jtpcc, fn, f)
         _REF[key] = dict(start=start, log=log, st=jst, stats=js,
-                         draws=_mixed_draws(jcfg, 1, n_rounds, None, None),
+                         draws=_mixed_draws(jcfg, 1, n_rounds, None, None,
+                                            TEST_MIX),
                          lay=lay, jnl=[o.journal for _, o in log if getattr(
                              o, "journal", None) is not None][-1]
                          if durable else None)

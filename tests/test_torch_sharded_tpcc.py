@@ -37,7 +37,7 @@ from repro_torch.core.tsoracle import PartitionedVectorOracle
 from repro_torch.db import tpcc
 
 from test_torch_durability import _eq_journal, _eq_stats, _resolved_entries
-from test_torch_mix import _conv
+from _torch_tpcc_common import _conv
 from test_torch_tpcc import _eq, _eq_state
 
 CFG = dict(n_warehouses=8, customers_per_district=8, n_items=64,

@@ -12,8 +12,6 @@ writes is read by the reference's ``snapshot.restore``, and
 size.
 """
 import dataclasses
-import importlib.util
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -36,9 +34,9 @@ from repro_torch.models import api
 from repro_torch.train import async_commit as ac, checkpoint, \
     compression as comp, optimizer as opt, trainstep as ts
 
+from _torch_examples_common import _example
 from test_torch_train_models import _rel_rms
 
-ROOT = Path(__file__).resolve().parents[1]
 # float32 limits, each beside the largest reading over the cases here
 SCHED_RTOL = 2e-6    # the learning rate (read: 3.6e-7, a cosine's ulps)
 OPT_RTOL = 1e-6      # params, m and v after 3 steps, of each leaf's
@@ -570,20 +568,12 @@ def test_adamw_state_round_trips_through_convert():
 
 
 # -------------------------------------------------- fail and recover ----
-def _example():
-    spec = importlib.util.spec_from_file_location(
-        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_fail_and_recover_is_bit_identical_on_the_cpu(monkeypatch):
     """``examples/train_lm_torch.py`` at a tiny preset: 10 steps, a
     checkpoint every 4, the failure after step 7 (a replay of steps 4-6);
     the recovered parameters equal the uninterrupted run's exactly, and
     so do the losses."""
-    ex = _example()
+    ex = _example("train_lm_torch")
     monkeypatch.setitem(ex.PRESETS, "tiny", dict(
         d_model=64, n_layers=2, d_ff=128, vocab=256, n_heads=4,
         n_kv_heads=2, seq=16, batch=4))
